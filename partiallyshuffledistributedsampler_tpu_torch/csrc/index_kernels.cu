@@ -1,37 +1,63 @@
 // Hand-written CUDA kernels for the epoch-index law (SPEC.md) on Hopper.
 //
-// Three kernels, one set of __device__ functions for the law:
+// Five kernels, one set of __device__ functions for the law:
 //
-//   window_order_ids  -> replaces the window-order pre-pass
-//                        partiallyshuffledistributedsampler_tpu/ops/xla.py
-//                        _window_order_ids (XLA there, not Pallas): one
-//                        thread per window slot j writes
-//                        ku[j] = swap_or_not(j, nw, outer_key(ek)).
-//   index_general     -> replaces the Pallas kernel
-//                        partiallyshuffledistributedsampler_tpu/ops/
-//                        pallas_kernel.py _index_kernel: one thread per
-//                        output lane, the full windowed permutation.
-//   index_amortized   -> replaces the Pallas kernel
-//                        partiallyshuffledistributedsampler_tpu/ops/
-//                        pallas_kernel.py _amortized_kernel (+ its
-//                        _expand_window_ids): body lanes read their source
-//                        window ku[t / m] straight from global memory and run
-//                        only the inner bijection; lanes t >= body (tail
-//                        window, wrap padding) take the general law in the
-//                        same launch.
+//   window_order_ids      -> replaces the window-order pre-pass
+//                            partiallyshuffledistributedsampler_tpu/ops/xla.py
+//                            _window_order_ids (XLA there, not Pallas): one
+//                            thread per window slot j writes
+//                            ku[j] = swap_or_not(j, nw, outer_key(ek)).
+//   index_general         -> replaces the Pallas kernel
+//                            partiallyshuffledistributedsampler_tpu/ops/
+//                            pallas_kernel.py _index_kernel: one thread per
+//                            output lane, the full windowed permutation.
+//   index_amortized       -> replaces the Pallas kernel
+//                            partiallyshuffledistributedsampler_tpu/ops/
+//                            pallas_kernel.py _amortized_kernel (+ its
+//                            _expand_window_ids): body lanes read their source
+//                            window ku[t / m] straight from global memory and
+//                            run only the inner bijection; lanes t >= body
+//                            (tail window, wrap padding) take the general law
+//                            in the same launch.
+//   index_general_wide    -> the same two kernel bodies for index spaces
+//   index_amortized_wide     n >= 2^31, int64 output.  They replace XLA code
+//                            of the JAX package (its Pallas kernels stop at
+//                            2^31): ops/core.py epoch_indices_generic with
+//                            uint64 positions, and ops/xla.py
+//                            _epoch_indices_amortized (its `big` branch).
+//
+// The narrow and the wide forms are one kernel body templated on the
+// position type Pos (uint32 / uint64) and the output type Out (int32 /
+// int64).  Positions of the wide forms are uint64 with no wrap:
+// (rank + world*t) % n and rank*num_samples + t are taken in uint64, where
+// the narrow forms wrap at 2^32 before the mod n as the uint32 reference
+// does.  The bijection domains stay uint32 in both: window ids, in-window
+// offsets and tail offsets are below 2^31, so j = p / W and r0 = p % W are
+// taken in Pos and narrowed, and only the combines kw*W + rho and
+// body_len + rho_t widen.  The general wide kernel counts lanes in uint64
+// (num_samples exceeds 2^32 at world 1 or 2 of a 10B space); the amortized
+// wide kernel keeps a uint32 counter, since its gate bounds ceil(n/world)
+// below 2^31.
+//
+// The seed triple (seed_lo, seed_hi, epoch) comes either as launch
+// arguments or, when `seeds` is not null, from three uint32 words in device
+// memory: the output of a collective that agreed on it, so no host read is
+// needed between the agreement and the launch.
 //
 // What bounds them: integer operations, not bytes.  A bijection costs
 // `rounds` (24) rounds of ~18 int32 operations per element (add, wrap
 // compare/subtract/select, max, two xors, the 8-operation mix32, bit test
 // and select); the general law runs two bijections per element, the
-// amortized one.  Each element writes 4 bytes and reads none (the amortized
-// kernel reads 4 bytes per m elements).  The design follows from that: no
-// input tiles, no shared-memory staging of data, one lane per thread with
-// a grid-stride loop; the only shared memory holds the per-round pairing
-// constants K_r = mix32(pair ^ r*GOLDEN) mod m, which depend on scalars
-// only and are computed once per block (at most 3 schedules x 64 rounds),
-// never per element.  Division and modulo by the runtime m, W and n are
-// plain `/` and `%` (fast-divmod magic numbers are a known next step).
+// amortized one.  Each element writes 4 bytes (8 in the wide forms) and
+// reads none (the amortized kernel reads 4 bytes per m elements).  The
+// design follows from that: no input tiles, no shared-memory staging of
+// data, one lane per thread with a grid-stride loop; the only shared memory
+// holds the per-round pairing constants K_r = mix32(pair ^ r*GOLDEN) mod m,
+// which depend on scalars only and are computed once per block (at most 3
+// schedules x 64 rounds), never per element.  Division and modulo by the
+// runtime m, W and n are plain `/` and `%` (in uint64 for wide positions,
+// a software sequence on the GPU); fast-divmod magic numbers are a known
+// next step.
 //
 // Every operation keeps the order of ops/core.py: uint32 wrap-around
 // arithmetic throughout, partner = K_r + (m - x) then -m if >= m, the
@@ -61,14 +87,16 @@ constexpr uint32_t C_WIN = 0x27D4EB2Fu;
 constexpr uint32_t C_BIT = 0x94D049BBu;
 constexpr uint32_t C_PAIR = 0x165667B1u;
 
+constexpr uint32_t INT32_MAX_U = 0x7FFFFFFFu;
 constexpr int MAX_ROUNDS = 64;
 constexpr int THREADS = 256;
 constexpr int BLOCKS_PER_SM = 8;
 
 // The static configuration and the per-call scalars of one launch.
 struct LawParams {
-  uint32_t n, window, world, num_samples, rank;
-  uint32_t nw, body_len, tail_len;  // n / window, nw * window, n - body_len
+  uint64_t n, num_samples, body_len;  // body_len = nw * window
+  uint32_t window, world, rank;
+  uint32_t nw, tail_len;  // n / window, n - body_len
   uint32_t seed_lo, seed_hi, epoch;
   int rounds, shuffle, order_windows, strided;
 };
@@ -92,10 +120,19 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ Keys make_keys(const LawParams &P) {
-  uint32_t k = mix32(P.seed_lo ^ GOLDEN);
-  k = mix32(k ^ mix32(P.seed_hi ^ C_SEED_HI));
-  k = mix32(k ^ mix32(P.epoch ^ C_EPOCH));
+// `seeds` (nullable): the triple in device memory, read in place of the
+// launch arguments.
+__device__ __forceinline__ Keys make_keys(const LawParams &P,
+                                          const uint32_t *seeds) {
+  uint32_t lo = P.seed_lo, hi = P.seed_hi, ep = P.epoch;
+  if (seeds != nullptr) {
+    lo = __ldg(seeds);
+    hi = __ldg(seeds + 1);
+    ep = __ldg(seeds + 2);
+  }
+  uint32_t k = mix32(lo ^ GOLDEN);
+  k = mix32(k ^ mix32(hi ^ C_SEED_HI));
+  k = mix32(k ^ mix32(ep ^ C_EPOCH));
   Keys keys;
   keys.ek = k;
   keys.okey = mix32(k ^ C_OUTER);
@@ -138,32 +175,35 @@ __device__ __forceinline__ uint32_t inner_key(const Keys &k, uint32_t wid) {
 // (ops/core.py windowed_perm).  The reference evaluates the body and the
 // tail law on every lane and selects by p < body_len; a lane here
 // evaluates only the law it selects, which gives the same value.
-__device__ __forceinline__ uint32_t windowed_perm(uint32_t p,
-                                                  const LawParams &P,
-                                                  const Keys &k,
-                                                  const Schedules &s) {
-  if (p < P.body_len) {
-    uint32_t j = p / P.window;
+template <typename Pos>
+__device__ __forceinline__ Pos windowed_perm(Pos p, const LawParams &P,
+                                             const Keys &k,
+                                             const Schedules &s) {
+  const Pos body_len = (Pos)P.body_len;
+  if (p < body_len) {
+    uint32_t j = (uint32_t)(p / P.window);
     j = j > P.nw - 1 ? P.nw - 1 : j;
-    const uint32_t r0 = p % P.window;
+    const uint32_t r0 = (uint32_t)(p % P.window);
     const uint32_t kw = (P.order_windows && P.nw > 1)
                             ? swap_or_not(j, P.nw, s.outer, k.okey, P.rounds)
                             : j;
-    return kw * P.window +
+    return (Pos)kw * P.window +
            swap_or_not(r0, P.window, s.inner, inner_key(k, kw), P.rounds);
   }
-  uint32_t tpos = p - P.body_len;
+  uint32_t tpos = (uint32_t)(p - body_len);
   tpos = tpos > P.tail_len - 1 ? P.tail_len - 1 : tpos;
-  return P.body_len + swap_or_not(tpos, P.tail_len, s.tail, k.tkey, P.rounds);
+  return body_len +
+         swap_or_not(tpos, P.tail_len, s.tail, k.tkey, P.rounds);
 }
 
-// Stream position of output lane t, with the uint32 wrap of the reference
-// (pallas_kernel.py _index_kernel) before the mod n.
-__device__ __forceinline__ uint32_t stream_position(uint32_t t,
-                                                    const LawParams &P) {
-  const uint32_t p =
-      P.strided ? P.rank + P.world * t : P.rank * P.num_samples + t;
-  return p % P.n;
+// Stream position of output lane t, mod n.  uint32 positions wrap at 2^32
+// before the mod n, as the reference does (pallas_kernel.py _index_kernel);
+// uint64 positions do not wrap.
+template <typename Pos>
+__device__ __forceinline__ Pos stream_position(Pos t, const LawParams &P) {
+  const Pos p = P.strided ? (Pos)P.rank + (Pos)P.world * t
+                          : (Pos)P.rank * (Pos)P.num_samples + t;
+  return p % (Pos)P.n;
 }
 
 __device__ __forceinline__ void load_schedules(Schedules &s,
@@ -175,9 +215,10 @@ __device__ __forceinline__ void load_schedules(Schedules &s,
 }
 
 __global__ void __launch_bounds__(THREADS)
-    window_order_ids_kernel(uint32_t *__restrict__ ku, LawParams P) {
+    window_order_ids_kernel(uint32_t *__restrict__ ku, LawParams P,
+                            const uint32_t *__restrict__ seeds) {
   __shared__ uint32_t ks[MAX_ROUNDS];
-  const Keys k = make_keys(P);
+  const Keys k = make_keys(P, seeds);
   load_round_keys(ks, k.okey, P.nw, P.rounds);
   __syncthreads();
   const bool permute = P.order_windows && P.nw > 1;
@@ -187,51 +228,58 @@ __global__ void __launch_bounds__(THREADS)
     ku[j] = permute ? swap_or_not(j, P.nw, ks, k.okey, P.rounds) : j;
 }
 
+// Pos is also the lane counter: uint64 where num_samples may pass 2^32.
+template <typename Pos, typename Out>
 __global__ void __launch_bounds__(THREADS)
-    index_general_kernel(int32_t *__restrict__ out, LawParams P) {
+    index_general_kernel(Out *__restrict__ out, LawParams P,
+                         const uint32_t *__restrict__ seeds) {
   __shared__ Schedules s;
-  const Keys k = make_keys(P);
+  const Keys k = make_keys(P, seeds);
   load_schedules(s, P, k);
   __syncthreads();
-  const uint32_t stride = gridDim.x * blockDim.x;
-  for (uint32_t t = blockIdx.x * blockDim.x + threadIdx.x; t < P.num_samples;
+  const Pos stride = (Pos)gridDim.x * blockDim.x;
+  const Pos num_samples = (Pos)P.num_samples;
+  for (Pos t = (Pos)blockIdx.x * blockDim.x + threadIdx.x; t < num_samples;
        t += stride) {
-    const uint32_t p = stream_position(t, P);
-    out[t] = (int32_t)(P.shuffle ? windowed_perm(p, P, k, s) : p);
+    const Pos p = stream_position<Pos>(t, P);
+    out[t] = (Out)(P.shuffle ? windowed_perm<Pos>(p, P, k, s) : p);
   }
 }
 
 // Strided, shuffled, window % world == 0, nw >= 1: lane t < body = nw * m
 // sits in output window slot t / m at in-window offset
 // rank + world * (t % m), so its source window is ku[t / m] and only the
-// inner bijection remains per element.
+// inner bijection remains per element.  num_samples < 2^31 (the gate).
+template <typename Pos, typename Out>
 __global__ void __launch_bounds__(THREADS)
-    index_amortized_kernel(int32_t *__restrict__ out,
+    index_amortized_kernel(Out *__restrict__ out,
                            const uint32_t *__restrict__ ku, LawParams P,
-                           uint32_t m, uint32_t body) {
+                           uint32_t m, uint32_t body,
+                           const uint32_t *__restrict__ seeds) {
   __shared__ Schedules s;
-  const Keys k = make_keys(P);
+  const Keys k = make_keys(P, seeds);
   load_schedules(s, P, k);
   __syncthreads();
   const uint32_t stride = gridDim.x * blockDim.x;
-  for (uint32_t t = blockIdx.x * blockDim.x + threadIdx.x; t < P.num_samples;
+  const uint32_t num_samples = (uint32_t)P.num_samples;
+  for (uint32_t t = blockIdx.x * blockDim.x + threadIdx.x; t < num_samples;
        t += stride) {
-    uint32_t v;
+    Pos v;
     if (t < body) {
       const uint32_t slot = t / m;
       const uint32_t kex = __ldg(ku + slot);
       const uint32_t r0 = P.rank + P.world * (t % m);
-      v = kex * P.window +
+      v = (Pos)kex * P.window +
           swap_or_not(r0, P.window, s.inner, inner_key(k, kex), P.rounds);
     } else {
-      v = windowed_perm(stream_position(t, P), P, k, s);
+      v = windowed_perm<Pos>(stream_position<Pos>((Pos)t, P), P, k, s);
     }
-    out[t] = (int32_t)v;
+    out[t] = (Out)v;
   }
 }
 
-LawParams make_params(uint32_t n, uint32_t window, uint32_t world,
-                      uint32_t num_samples, uint32_t rank, uint32_t seed_lo,
+LawParams make_params(uint64_t n, uint32_t window, uint32_t world,
+                      uint64_t num_samples, uint32_t rank, uint32_t seed_lo,
                       uint32_t seed_hi, uint32_t epoch, int shuffle,
                       int order_windows, int strided, int rounds) {
   LawParams P;
@@ -240,9 +288,9 @@ LawParams make_params(uint32_t n, uint32_t window, uint32_t world,
   P.world = world;
   P.num_samples = num_samples;
   P.rank = rank;
-  P.nw = n / window;
-  P.body_len = P.nw * window;
-  P.tail_len = n - P.body_len;
+  P.nw = (uint32_t)(n / window);
+  P.body_len = (uint64_t)P.nw * window;
+  P.tail_len = (uint32_t)(n - P.body_len);
   P.seed_lo = seed_lo;
   P.seed_hi = seed_hi;
   P.epoch = epoch;
@@ -253,68 +301,134 @@ LawParams make_params(uint32_t n, uint32_t window, uint32_t world,
   return P;
 }
 
-bool bad_config(uint32_t n, uint32_t window, int rounds) {
-  return n == 0 || n > 0x7FFFFFFFu || window == 0 || rounds < 0 ||
-         rounds > MAX_ROUNDS;
+// What every kernel refuses: n = 0, a window or a window count outside
+// [1, 2^31), a round count the shared schedules cannot hold.
+bool bad_config(uint64_t n, uint32_t window, int rounds) {
+  return n == 0 || window == 0 || window > INT32_MAX_U ||
+         n / window > INT32_MAX_U || rounds < 0 || rounds > MAX_ROUNDS;
 }
 
-unsigned grid_for(uint32_t count) {
+// A narrow launch takes n < 2^31, a wide one n >= 2^31.
+bool bad_width(uint64_t n, bool wide) { return wide != (n > INT32_MAX_U); }
+
+bool bad_rank(uint32_t world, uint32_t rank, uint64_t num_samples) {
+  return world == 0 || world > INT32_MAX_U || rank >= world ||
+         num_samples == 0;
+}
+
+unsigned grid_for(uint64_t count) {
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const uint64_t need = ((uint64_t)count + THREADS - 1) / THREADS;
+  const uint64_t need = (count + THREADS - 1) / THREADS;
   const uint64_t cap = (uint64_t)sms * BLOCKS_PER_SM;
   return (unsigned)(need < cap ? need : cap);
 }
 
-}  // namespace
-
-extern "C" int psds_window_order_ids(void *ku, uint32_t n, uint32_t window,
-                                     uint32_t seed_lo, uint32_t seed_hi,
-                                     uint32_t epoch, int order_windows,
-                                     int rounds, void *stream) {
-  if (bad_config(n, window, rounds) || n / window == 0)
-    return (int)cudaErrorInvalidValue;
-  const LawParams P = make_params(n, window, 1, 0, 0, seed_lo, seed_hi,
-                                  epoch, 1, order_windows, 1, rounds);
-  window_order_ids_kernel<<<grid_for(P.nw), THREADS, 0,
-                            (cudaStream_t)stream>>>((uint32_t *)ku, P);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int psds_index_general(void *out, uint32_t n, uint32_t window,
-                                  uint32_t world, uint32_t num_samples,
-                                  uint32_t rank, uint32_t seed_lo,
-                                  uint32_t seed_hi, uint32_t epoch,
-                                  int shuffle, int order_windows, int strided,
-                                  int rounds, void *stream) {
-  if (bad_config(n, window, rounds) || world == 0 || rank >= world ||
-      num_samples == 0)
+template <typename Pos, typename Out>
+int launch_general(bool wide, void *out, uint64_t n, uint32_t window,
+                   uint32_t world, uint64_t num_samples, uint32_t rank,
+                   uint32_t seed_lo, uint32_t seed_hi, uint32_t epoch,
+                   const void *seeds, int shuffle, int order_windows,
+                   int strided, int rounds, void *stream) {
+  if (bad_config(n, window, rounds) || bad_width(n, wide) ||
+      bad_rank(world, rank, num_samples) ||
+      (!wide && num_samples > INT32_MAX_U))
     return (int)cudaErrorInvalidValue;
   const LawParams P =
       make_params(n, window, world, num_samples, rank, seed_lo, seed_hi,
                   epoch, shuffle, order_windows, strided, rounds);
-  index_general_kernel<<<grid_for(num_samples), THREADS, 0,
-                         (cudaStream_t)stream>>>((int32_t *)out, P);
+  index_general_kernel<Pos, Out>
+      <<<grid_for(num_samples), THREADS, 0, (cudaStream_t)stream>>>(
+          (Out *)out, P, (const uint32_t *)seeds);
   return (int)cudaGetLastError();
 }
 
-extern "C" int psds_index_amortized(void *out, const void *ku, uint32_t n,
-                                    uint32_t window, uint32_t world,
-                                    uint32_t num_samples, uint32_t rank,
-                                    uint32_t seed_lo, uint32_t seed_hi,
-                                    uint32_t epoch, int order_windows,
-                                    int rounds, void *stream) {
-  if (bad_config(n, window, rounds) || world == 0 || rank >= world ||
-      window % world != 0 || n / window == 0 || num_samples == 0)
+template <typename Pos, typename Out>
+int launch_amortized(bool wide, void *out, const void *ku, uint64_t n,
+                     uint32_t window, uint32_t world, uint64_t num_samples,
+                     uint32_t rank, uint32_t seed_lo, uint32_t seed_hi,
+                     uint32_t epoch, const void *seeds, int order_windows,
+                     int rounds, void *stream) {
+  if (bad_config(n, window, rounds) || bad_width(n, wide) ||
+      bad_rank(world, rank, num_samples) || num_samples > INT32_MAX_U ||
+      window % world != 0 || n / window == 0)
     return (int)cudaErrorInvalidValue;
   const LawParams P =
       make_params(n, window, world, num_samples, rank, seed_lo, seed_hi,
                   epoch, 1, order_windows, 1, rounds);
   const uint32_t m = window / world;
   const uint32_t body = P.nw * m;
-  index_amortized_kernel<<<grid_for(num_samples), THREADS, 0,
-                           (cudaStream_t)stream>>>(
-      (int32_t *)out, (const uint32_t *)ku, P, m, body);
+  index_amortized_kernel<Pos, Out>
+      <<<grid_for(num_samples), THREADS, 0, (cudaStream_t)stream>>>(
+          (Out *)out, (const uint32_t *)ku, P, m, body,
+          (const uint32_t *)seeds);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int psds_window_order_ids(void *ku, uint64_t n, uint32_t window,
+                                     uint32_t seed_lo, uint32_t seed_hi,
+                                     uint32_t epoch, const void *seeds,
+                                     int order_windows, int rounds,
+                                     void *stream) {
+  if (bad_config(n, window, rounds) || n / window == 0)
+    return (int)cudaErrorInvalidValue;
+  const LawParams P = make_params(n, window, 1, 0, 0, seed_lo, seed_hi,
+                                  epoch, 1, order_windows, 1, rounds);
+  window_order_ids_kernel<<<grid_for(P.nw), THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      (uint32_t *)ku, P, (const uint32_t *)seeds);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int psds_index_general(void *out, uint64_t n, uint32_t window,
+                                  uint32_t world, uint64_t num_samples,
+                                  uint32_t rank, uint32_t seed_lo,
+                                  uint32_t seed_hi, uint32_t epoch,
+                                  const void *seeds, int shuffle,
+                                  int order_windows, int strided, int rounds,
+                                  void *stream) {
+  return launch_general<uint32_t, int32_t>(
+      false, out, n, window, world, num_samples, rank, seed_lo, seed_hi,
+      epoch, seeds, shuffle, order_windows, strided, rounds, stream);
+}
+
+extern "C" int psds_index_general_wide(void *out, uint64_t n,
+                                       uint32_t window, uint32_t world,
+                                       uint64_t num_samples, uint32_t rank,
+                                       uint32_t seed_lo, uint32_t seed_hi,
+                                       uint32_t epoch, const void *seeds,
+                                       int shuffle, int order_windows,
+                                       int strided, int rounds,
+                                       void *stream) {
+  return launch_general<uint64_t, int64_t>(
+      true, out, n, window, world, num_samples, rank, seed_lo, seed_hi,
+      epoch, seeds, shuffle, order_windows, strided, rounds, stream);
+}
+
+extern "C" int psds_index_amortized(void *out, const void *ku, uint64_t n,
+                                    uint32_t window, uint32_t world,
+                                    uint64_t num_samples, uint32_t rank,
+                                    uint32_t seed_lo, uint32_t seed_hi,
+                                    uint32_t epoch, const void *seeds,
+                                    int order_windows, int rounds,
+                                    void *stream) {
+  return launch_amortized<uint32_t, int32_t>(
+      false, out, ku, n, window, world, num_samples, rank, seed_lo, seed_hi,
+      epoch, seeds, order_windows, rounds, stream);
+}
+
+extern "C" int psds_index_amortized_wide(void *out, const void *ku,
+                                         uint64_t n, uint32_t window,
+                                         uint32_t world, uint64_t num_samples,
+                                         uint32_t rank, uint32_t seed_lo,
+                                         uint32_t seed_hi, uint32_t epoch,
+                                         const void *seeds,
+                                         int order_windows, int rounds,
+                                         void *stream) {
+  return launch_amortized<uint64_t, int64_t>(
+      true, out, ku, n, window, world, num_samples, rank, seed_lo, seed_hi,
+      epoch, seeds, order_windows, rounds, stream);
 }

@@ -122,10 +122,28 @@ def as_u32_scalar(v):
     return v.to(torch.int64) & _M32
 
 
+def seed_triple(seed, epoch) -> tuple:
+    """``(seed_lo, seed_hi, epoch)`` as Python ints in uint32 range: the
+    layout of the seed triple that the kernels and the seed agreement of
+    ``parallel/`` carry."""
+    lo, hi = fold_seed(seed)
+    return int(lo), int(hi), int(epoch) & _M32
+
+
+def triple_seed_epoch(triple):
+    """``(seed, epoch)`` arguments of the law from a seed triple tensor
+    (three elements holding the uint32 bits, as int32 or int64): 0-d
+    tensor views on the triple's device, so the keys derive from it with
+    tensor ops and nothing is read back to the host."""
+    return (triple[0], triple[1]), triple[2]
+
+
 def derive_epoch_key(seed, epoch):
     """Fold ``(seed, epoch)`` into the epoch master key (uint32).
 
-    With int arguments the key is a Python int, computed on the host."""
+    With int arguments the key is a Python int, computed on the host; with
+    0-d tensors (``triple_seed_epoch``) it is a 0-d int64 tensor on their
+    device."""
     lo, hi = fold_seed(seed)
     seed_lo, seed_hi, ep = (as_u32_scalar(v) for v in (lo, hi, epoch))
     k = mix32(seed_lo ^ _GOLDEN)
@@ -192,6 +210,19 @@ def swap_or_not(x: torch.Tensor, m: int, key, rounds: int, pair_key=None):
 # Windowed permutation pi over [0, n)
 # ---------------------------------------------------------------------------
 
+def check_index_space(n: int, window: int) -> None:
+    """What the law refuses: the window and the window count are uint32
+    bijection domains and must stay below 2^31."""
+    if window <= 0:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if window > INT32_MAX:
+        raise ValueError("window must be < 2^31")
+    if n // window > INT32_MAX:
+        raise ValueError(
+            f"n // window must be < 2^31 (n={n}, window={window})"
+        )
+
+
 def windowed_perm(
     p: torch.Tensor,
     n: int,
@@ -210,13 +241,8 @@ def windowed_perm(
     """
     ek_pair = epoch_key if pair_epoch_key is None else pair_epoch_key
     W = int(window)
-    if W <= 0:
-        raise ValueError(f"window must be >= 1, got {W}")
-    if W > INT32_MAX:
-        raise ValueError("window must be < 2^31")
+    check_index_space(n, W)
     nw_full = n // W
-    if nw_full > INT32_MAX:
-        raise ValueError("n // window must be < 2^31")
     body_len = nw_full * W
     tail_len = n - body_len
 

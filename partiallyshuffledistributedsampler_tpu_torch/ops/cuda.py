@@ -5,15 +5,20 @@ iterator call.  On a CUDA device it always launches the hand-written
 kernels of ``ops/cuda_kernel.py``:
 
 * the amortized route (strided, shuffled, ``window % world == 0``, at
-  least one full window): ``window_order_ids`` runs the window-order
-  bijection once per window, then ``index_amortized`` runs one bijection
-  per element;
+  least one full window, and for n >= 2^31 ``ceil(n / world) < 2^31``):
+  ``window_order_ids`` runs the window-order bijection once per window,
+  then ``index_amortized`` runs one bijection per element;
 * every other config: ``index_general``, the full law per element.
+
+Index spaces n >= 2^31 take the ``_wide`` form of each index kernel and
+come out as int64 (``core.out_dtype``).  The seed may come as scalars or
+as a seed triple tensor on the card (``triple``, the output of the seed
+agreement in ``parallel/``).
 
 On a CPU device the same routing runs the kernels' plain versions, which
 is what the CPU tests use.  ``stream_indices_at_cuda`` and
-``elastic_indices_cuda`` are plain torch ops on the device of their
-input: they are random-access reads, not the per-epoch hot path.
+``elastic_indices_cuda`` are plain torch ops on ``device``: they are
+random-access reads, not the per-epoch hot path.
 
 ``build_evaluator`` is the plain torch evaluator of a static config, on
 any device, with the same amortized/general routing.
@@ -83,11 +88,12 @@ def build_evaluator(
     partition: str = "strided",
     rounds: int = core.DEFAULT_ROUNDS,
     amortize: bool = True,
-    device=None,
+    device,
 ):
     """The plain torch evaluator ``fn(seed, epoch, rank) -> indices`` of a
-    static config on ``device``: the amortized form where it applies
-    (and ``amortize``), else the general per-element law."""
+    static config on ``device`` (required: the plain law runs wherever it
+    is asked to): the amortized form where it applies (and ``amortize``),
+    else the general per-element law."""
     num_samples, _ = core.shard_sizes(n, world, drop_last)
     if bool(amortize) and _amortized_applicable(
         n, window, world, shuffle, partition
@@ -132,34 +138,41 @@ def epoch_indices_cuda(
     rounds: int = core.DEFAULT_ROUNDS,
     amortize: bool = True,
     device="cuda",
+    triple=None,
 ) -> torch.Tensor:
-    """Rank's epoch indices as an int32 tensor on ``device`` (default: the
-    current CUDA device).  The kernels are launched on the current stream
-    and not waited for.  ``amortize=False`` forces the general kernel (the
-    value is identical).  Index spaces n >= 2^31 raise: they have no
-    kernel yet."""
+    """Rank's epoch indices on ``device`` (default: the current CUDA
+    device): int32, or int64 when n >= 2^31.  The kernels are launched on
+    the current stream and not waited for.  ``amortize=False`` forces the
+    general kernel (the value is identical).  ``triple`` (with ``seed``
+    and ``epoch`` None) is the seed triple as an int32[3] tensor on
+    ``device``, read by the kernels from device memory."""
     n, window, world, rank = int(n), int(window), int(world), int(rank)
     _check_args(n, window, rank, world)
     if partition not in ("strided", "blocked"):
         raise ValueError(
             f"partition must be 'strided' or 'blocked', got {partition!r}"
         )
-    cuda_kernel.require_int32_index_space(n)
+    core.check_index_space(n, window)
+    wide = core.is_wide(n)
     with torch.profiler.record_function("psds_epoch_regen"):
         if amortize and _amortized_applicable(n, window, world, shuffle,
                                               partition):
             ku = cuda_kernel.window_order_ids(
                 n, window, seed, epoch, order_windows=order_windows,
-                rounds=rounds, device=device,
+                rounds=rounds, device=device, triple=triple,
             )
-            return cuda_kernel.index_amortized(
+            amortized = (cuda_kernel.index_amortized_wide if wide
+                         else cuda_kernel.index_amortized)
+            return amortized(
                 ku, n, window, seed, epoch, rank, world, drop_last=drop_last,
-                order_windows=order_windows, rounds=rounds,
+                order_windows=order_windows, rounds=rounds, triple=triple,
             )
-        return cuda_kernel.index_general(
+        general = (cuda_kernel.index_general_wide if wide
+                   else cuda_kernel.index_general)
+        return general(
             n, window, seed, epoch, rank, world, shuffle=shuffle,
             drop_last=drop_last, order_windows=order_windows,
-            partition=partition, rounds=rounds, device=device,
+            partition=partition, rounds=rounds, device=device, triple=triple,
         )
 
 
@@ -173,13 +186,20 @@ def stream_indices_at_cuda(
     shuffle: bool = True,
     order_windows: bool = True,
     rounds: int = core.DEFAULT_ROUNDS,
+    device="cuda",
 ) -> torch.Tensor:
-    """Random access into the epoch stream (SPEC.md §4) on the device of
-    ``positions``."""
-    return core.stream_indices_at_generic(
-        positions, int(n), int(window), seed, epoch, shuffle=shuffle,
-        order_windows=order_windows, rounds=rounds,
-    )
+    """Random access into the epoch stream (SPEC.md §4) on ``device``
+    (default: the current CUDA device; ``positions`` are moved there):
+    ``stream(p) = pi(p mod n)``, int32, or int64 when n >= 2^31."""
+    n, window = int(n), int(window)
+    cuda_kernel.device_kind(device)
+    core.check_index_space(n, window)
+    positions = torch.as_tensor(positions).to(device)
+    with torch.profiler.record_function("psds_stream_at"):
+        return core.stream_indices_at_generic(
+            positions, n, window, seed, epoch, shuffle=shuffle,
+            order_windows=order_windows, rounds=rounds,
+        )
 
 
 def elastic_indices_cuda(
@@ -201,8 +221,7 @@ def elastic_indices_cuda(
     """Rank's elastic-remainder-epoch indices (SPEC.md §6) on ``device``.
     ``chain`` is the outermost-first tuple of (world, num_samples,
     consumed) reshard layers from ``core.elastic_chain``."""
-    if torch.device(device).type == "cuda":
-        cuda_kernel.require_cuda()
+    cuda_kernel.device_kind(device)
     with torch.profiler.record_function("psds_elastic_regen"):
         return core.elastic_indices_generic(
             int(n), int(window), seed, epoch, int(rank), int(world),

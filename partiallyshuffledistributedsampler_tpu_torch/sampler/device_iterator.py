@@ -14,7 +14,7 @@ from typing import Iterator
 import torch
 
 from ..ops import core, ensure_index_backend
-from ..ops.cuda import epoch_indices_cuda
+from ..ops.cuda import elastic_indices_cuda, epoch_indices_cuda
 
 
 def batch_index_window(epoch_idx: torch.Tensor, step: int,
@@ -105,5 +105,42 @@ class DeviceEpochIterator:
         idx = self.epoch_array(epoch)
         if self.prefetch_next_epoch:
             self._prefetch(epoch)
-        for s in range(self.steps_per_epoch):
+        yield from self._serve(idx)
+
+    def _serve(self, idx: torch.Tensor) -> Iterator[torch.Tensor]:
+        """An index tensor as per-step views: the whole batches, then
+        (``drop_last_batch=False``) the trailing partial batch."""
+        whole = idx.shape[0] // self.batch
+        for s in range(whole):
             yield batch_index_window(idx, s, self.batch)
+        if idx.shape[0] > whole * self.batch and not self.drop_last_batch:
+            yield idx[whole * self.batch:]
+
+    def elastic_epoch_array(self, epoch: int, layers) -> torch.Tensor:
+        """This rank's remainder-epoch indices after a world-size change
+        (SPEC.md §6): build the iterator at the NEW ``(rank, world)`` and
+        pass the checkpoint cascade ``[(old_world, consumed), ...]``
+        outermost first.  Equal to the sampler's
+        ``reshard_from_state_dict`` stream for the same layers."""
+        chain, remaining, ns = core.elastic_chain(
+            self.n, layers, self.world, self.kwargs.get("drop_last", False)
+        )
+        if remaining == 0 or ns == 0:
+            return torch.empty(0, dtype=core.out_dtype(self.n),
+                               device=self.device)
+        return elastic_indices_cuda(
+            self.n, self.window, self.seed, epoch, self.rank, self.world,
+            ns, chain,
+            shuffle=self.kwargs.get("shuffle", True),
+            order_windows=self.kwargs.get("order_windows", True),
+            partition=self.kwargs.get("partition", "strided"),
+            rounds=self.kwargs.get("rounds", core.DEFAULT_ROUNDS),
+            device=self.device,
+        )
+
+    def elastic_epoch(self, epoch: int, layers) -> Iterator[torch.Tensor]:
+        """Per-step batches of the remainder epoch (SPEC.md §6), served as
+        :meth:`epoch` serves a full one.  After it, continue with ordinary
+        :meth:`epoch` calls: the next epoch is a full epoch at the new
+        world size."""
+        yield from self._serve(self.elastic_epoch_array(epoch, layers))

@@ -115,3 +115,86 @@ def test_sampler_and_iterator_on_gpu():
     np.testing.assert_array_equal(torch.cat(batches).cpu().numpy(),
                                   want[:len(batches) * 100])
     assert ck.launches["index_amortized"] >= 2
+
+
+TEN_B = 10_000_000_000
+N31 = 2**31 + 5000
+#: (n, window, world, rank, law kwargs) of the wide kernels (n >= 2^31)
+WIDE_CASES = [
+    (N31, 8192, 8192, 4999, {}),                  # m = 1, one tail lane
+    (N31, 8192, 4096, 4095, {}),                  # m = 2
+    (TEN_B, 8192, 8192, 0, {}),
+    (TEN_B, 8192, 8192, 8191, {"partition": "blocked"}),
+    (TEN_B, 8192, 8192, 5, {"drop_last": True}),
+    (TEN_B, 8192, 8192, 3, {"order_windows": False}),
+]
+
+
+@pytest.mark.parametrize("n,window,world,rank,kw", WIDE_CASES)
+def test_wide_kernels_match_numpy_reference(n, window, world, rank, kw):
+    ck.reset_launches()
+    want = jcpu.epoch_indices_np(n, window, 42, 3, rank, world, **kw)
+    for amortize in (True, False):
+        got = cuda.epoch_indices_cuda(n, window, 42, 3, rank, world,
+                                      amortize=amortize, **kw)
+        assert got.is_cuda and got.dtype == torch.int64
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    amortized = kw.get("partition") != "blocked"
+    assert ck.launches["index_amortized_wide"] == int(amortized)
+    assert ck.launches["index_general_wide"] == 2 - int(amortized)
+    assert ck.launches["index_general"] == ck.launches["index_amortized"] == 0
+
+
+def test_wide_kernels_match_plain_versions_at_world_256():
+    """The config-5 shard, 39,062,500 lanes, on every lane."""
+    ns, _ = core.shard_sizes(TEN_B, 256, False)
+    ku = ck.window_order_ids(TEN_B, 8192, 0, 1)
+    want = ck.index_amortized_wide_ref(ku, TEN_B, 8192, 0, 1, 255, 256, ns)
+    assert torch.equal(ck.index_amortized_wide(ku, TEN_B, 8192, 0, 1, 255,
+                                               256), want)
+    assert torch.equal(ck.index_general_wide(TEN_B, 8192, 0, 1, 255, 256),
+                       want)
+    assert int(want.max()) > 2**31
+
+
+def _triple(seed, epoch):
+    bits = np.array(core.seed_triple(seed, epoch), dtype=np.uint32)
+    return torch.from_numpy(bits.view(np.int32)).cuda()
+
+
+@pytest.mark.parametrize("n,window,world", [(50_000, 512, 4),
+                                            (TEN_B, 8192, 8192)])
+def test_device_triple_matches_scalar_launches(n, window, world):
+    seed, epoch = (1 << 40) + 0xFFFFFFF7, 0xFFFFFFF0
+    t = _triple(seed, epoch)
+    wide = core.is_wide(n)
+    general = ck.index_general_wide if wide else ck.index_general
+    amortized = ck.index_amortized_wide if wide else ck.index_amortized
+    ku = ck.window_order_ids(n, window, seed, epoch)
+    ku_t = ck.window_order_ids(n, window, None, None, triple=t)
+    assert torch.equal(ku, ku_t)
+    for rank in (0, world - 1):
+        want = general(n, window, seed, epoch, rank, world)
+        assert torch.equal(general(n, window, None, None, rank, world,
+                                   triple=t), want)
+        assert torch.equal(amortized(ku_t, n, window, None, None, rank,
+                                     world, triple=t), want)
+        assert torch.equal(cuda.epoch_indices_cuda(
+            n, window, None, None, rank, world, triple=t), want)
+    with pytest.raises(ValueError, match="triple"):
+        general(n, window, seed, epoch, 0, world, triple=t)
+    with pytest.raises(ValueError, match="int32"):
+        general(n, window, None, None, 0, world, triple=t.long())
+
+
+def test_num_samples_past_2_32_lanes_spot_checks():
+    """The general wide kernel with a 64-bit lane counter: n = 2^32 + 4097
+    at world 1 (34.4 GB of int64)."""
+    n = 2**32 + 4097
+    out = cuda.epoch_indices_cuda(n, 8192, 0, 1, 0, 1)
+    lanes = torch.tensor([0, 2**32 - 2, 2**32 - 1, 2**32, 2**32 + 1,
+                          2**32 + 2, n - 1], device="cuda")
+    want = cuda.stream_indices_at_cuda(lanes, n, 8192, 0, 1)
+    assert torch.equal(out[lanes], want)
+    del out
+    torch.cuda.empty_cache()

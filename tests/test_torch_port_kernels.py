@@ -141,7 +141,7 @@ def test_epoch_entry_on_cpu_matches_xla_entry(n, window, world, kw):
                                           amortize=amortize, device="cpu",
                                           **kw)
             np.testing.assert_array_equal(got.numpy(), want)
-        fn = cuda.build_evaluator(n, window, world, **kw)
+        fn = cuda.build_evaluator(n, window, world, device="cpu", **kw)
         np.testing.assert_array_equal(fn(11, 2, rank).numpy(), want)
 
 
@@ -150,7 +150,7 @@ def test_stream_and_elastic_entries_on_cpu_match_jax():
     pos = rng.integers(0, 10**7, size=3000)
     want = np.asarray(xla.stream_indices_at_jax(pos, 10**6, 1000, 4, 1))
     got = cuda.stream_indices_at_cuda(torch.from_numpy(pos), 10**6, 1000, 4,
-                                      1)
+                                      1, device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
     chain, _remaining, ns = core.elastic_chain(5000, [(4, 100), (3, 7)], 2)
     want = np.asarray(xla.elastic_indices_jax(5000, 128, 4, 1, 1, 2, ns,
@@ -178,7 +178,8 @@ def test_cpu_routing_launches_no_kernel():
     cuda.epoch_indices_cuda(4096, 256, 0, 0, 0, 8, device="cpu",
                             amortize=False)
     assert ck.launches == {"window_order_ids": 0, "index_general": 0,
-                           "index_amortized": 0}
+                           "index_amortized": 0, "index_general_wide": 0,
+                           "index_amortized_wide": 0}
 
 
 # ------------------------------------------------------------- refusals
@@ -195,12 +196,15 @@ def test_cuda_path_raises_named_error_without_gpu(no_gpu):
         epoch_indices_host("cuda", 1000, 64, 0, 0, 0, 2)
     with pytest.raises(ck.CudaUnavailableError):
         cuda.elastic_indices_cuda(1000, 64, 0, 0, 0, 2, 10, ((2, 500, 490),))
+    with pytest.raises(ck.CudaUnavailableError):
+        cuda.stream_indices_at_cuda(np.arange(10), 1000, 64, 0, 0)
     assert issubclass(ck.CudaUnavailableError, RuntimeError)
 
 
 def test_refusals_on_every_machine():
-    with pytest.raises(ValueError, match="int32 max"):
-        cuda.epoch_indices_cuda(2**31, 8192, 0, 0, 0, 256)
+    # what the law refuses, before anything is allocated
+    with pytest.raises(ValueError, match="n // window"):
+        cuda.epoch_indices_cuda(2**33, 1, 0, 0, 0, 2**20, device="cpu")
     with pytest.raises(ValueError, match="window"):
         cuda.epoch_indices_cuda(100, 0, 0, 0, 0, 1, device="cpu")
     with pytest.raises(ValueError, match="world"):

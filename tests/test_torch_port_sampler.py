@@ -217,3 +217,32 @@ def test_device_iterator_rejects_bad_shapes():
         DeviceEpochIterator(N, WINDOW, 64, rank=3, world=3, device="cpu")
     with pytest.raises(ValueError, match="batch"):
         DeviceEpochIterator(100, 16, 64, world=2, device="cpu")
+
+
+@pytest.mark.parametrize("layers,drop_last_batch", [
+    ([(4, 300)], True),
+    ([(4, 300)], False),
+    ([(5, 100), (3, 40)], False),
+    ([(3, 1668)], True),  # fully consumed: an empty remainder
+])
+def test_device_iterator_elastic_epoch_matches_jax_iterator(
+        layers, drop_last_batch):
+    from partiallyshuffledistributedsampler_tpu.sampler.jax_iterator import (
+        DeviceEpochIterator as JaxIterator,
+    )
+
+    it = DeviceEpochIterator(N, WINDOW, 64, seed=7, rank=1, world=2,
+                             drop_last_batch=drop_last_batch, device="cpu")
+    jit = JaxIterator(N, WINDOW, 64, seed=7, rank=1, world=2,
+                      drop_last_batch=drop_last_batch)
+    want = np.asarray(jit.elastic_epoch_array(4, layers))
+    got = it.elastic_epoch_array(4, layers)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        want, jcpu.elastic_indices_np(N, WINDOW, 7, 4, 1, 2, layers))
+    batches = list(it.elastic_epoch(4, layers))
+    jbatches = [np.asarray(b) for b in jit.elastic_epoch(4, layers)]
+    assert [len(b) for b in batches] == [len(b) for b in jbatches]
+    for b, jb in zip(batches, jbatches):
+        np.testing.assert_array_equal(b.numpy(), jb)
