@@ -5,7 +5,8 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-It builds the CUDA index kernels from ``csrc/index_kernels.cu``, checks the
+It builds the CUDA kernels from ``csrc/index_kernels.cu`` and
+``csrc/mixture_kernels.cu`` (one nvcc each, run together), checks the
 frozen goldens on the card, holds each kernel bit-exact against its plain
 PyTorch version at the shapes of the main paths, drives each main path
 through the entry points a user calls with the kernels' launch counters
@@ -25,6 +26,18 @@ plain version and its bound.  Every failure exits non-zero.
   synchronisation) and two gloo processes on the one card with divergent
   local seeds, where rank 0's must win.  The gloo processes are this
   script, run with ``--gloo-worker RANK PORT``.
+* Slice 3, the weighted multi-corpus mixture (SPEC.md §8) and its two
+  kernels (``csrc/mixture_kernels.cu``): M1 is the repo's 1B three-corpus
+  anchor (web/code/books 700M/200M/100M at 70/20/10, window 8192, block
+  1024) at world 256, 32 and 8; M2 is M1's spec over a 10B-sample epoch
+  (uint64 positions, int32 ids); M3 is the 10B id space as a 70/20/10
+  mixture of six sources (int64 ids); and a 300-source spec.  The main
+  path: ``PartialShuffleMixtureSampler`` under a real ``DataLoader``,
+  ``MixtureEpochIterator`` (``epoch``, ``run_epoch``, ``run_epochs``,
+  ``elastic_epoch``), 32 agreed ``sharded_mixture_indices`` reseeds and one
+  ``sharded_mixture_elastic_indices`` over the NCCL group of one, and
+  mixture rows in the two gloo processes; then the single-source
+  ``run_epoch``/``run_epochs``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -48,6 +61,28 @@ N_WIDE1 = 2**31 + 5000  # the least wide space, agreed at world 1 (17 GB)
 SLICE1 = ("window_order_ids", "index_general", "index_amortized")
 SLICE2 = ("window_order_ids", "index_amortized", "index_general_wide",
           "index_amortized_wide")
+#: the slice-3 kernels, and the index kernels its mixture path never runs
+SLICE3 = ("mixture_source_keys", "mixture_fused")
+INDEX_KERNELS = ("window_order_ids", "index_general", "index_amortized",
+                 "index_general_wide", "index_amortized_wide")
+#: M1: the 1B three-corpus anchor of bench.py / README (web, code, books)
+M1_SOURCES, M1_WEIGHTS = (700_000_000, 200_000_000, 100_000_000), (70, 20, 10)
+#: M2: M1's spec over config 5's 10B-sample epoch (about 10 passes)
+M2_SAMPLES = 10_000_000_000
+#: M3: config 5's 10B id space as a 70/20/10 mixture (web in four shards)
+M3_SOURCES = (1_750_000_000,) * 4 + (2_000_000_000, 1_000_000_000)
+M3_WEIGHTS = (175,) * 4 + (200, 100)
+#: the mixture goldens of tests/test_mixture.py (sources 1000/500/2500,
+#: weights 5/1/4, window 64, block 100, seed 7, epoch 3, world 1), per
+#: pattern version: the first 8 ids and the sum
+MIX_GOLDENS = {1: ([394, 2255, 425, 2252, 411, 1363, 2260, 402], 5793243),
+               2: ([2255, 394, 2252, 425, 1363, 2260, 411, 2262], 5793243)}
+#: the agreed mixture reseeds run at world 1 (a group of one): M1's spec
+#: over one world-256 rank's share, and a remainder after a reshard
+MIX_AGREED_SAMPLES = 3_906_250
+MIX_AGREED_LAYERS = [(256, 3_900_000)]
+MIX_LAYERS = [(8, 50_000_000)]  # the iterator's reshard 8 -> 256
+GLOO_MIX_SAMPLES = 4_000_000
 #: (seed_lo, seed_hi, epoch) of the two gloo ranks: divergent, rank 0 wins
 GLOO_LOCAL = ((0x1234, 5, 7), (0xBEEF, 9, 99))
 GLOO_LAYERS = [(8, 100_000)]
@@ -67,6 +102,21 @@ POS_OPS = 3
 #: % counts as one operation, as in POS_OPS: the bound leaves out the
 #: software sequences that they compile to
 WIDE_OPS = 2
+#: mixture_fused per lane besides its bijections, counted from
+#: csrc/mixture_kernels.cu in the same way: the position (1), block and
+#: slot (2), the v2 rotation (mix32 and its xor 7, % B, add, wrap compare
+#: and select: 11), the prefix count (two index multiply-adds, the wrap
+#: select, an add and a subtract: 5), j, pass and offset (3), the
+#: pass-folded decision key (four mix32 with their xors: 28), the body/tail
+#: test, window and in-window offset (3), the combine and the base (2)
+MIX_LANE_OPS = 55
+#: key of the outer or tail bijection of a mixture lane: its decision key
+#: (mix32 + xor, 7) and key2 (7); the inner one costs INNER_KEY_OPS
+BIJ_KEY_OPS = 14
+#: mixture_source_keys per word of its buffer: the source's seed key (three
+#: mix32, two xors) and pass-free epoch key (two mix32, two xors), the
+#: pairing key (mix32 + xor) and K_r (mix32, xor, multiply, compare, mod)
+KEY_WORD_OPS = 51
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
@@ -94,6 +144,22 @@ def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         return sock.getsockname()[1]
+
+
+class IdDataset:
+    """A dataset over an id space whose item for a list of ids is the ids:
+    a ``DataLoader`` over a ``BatchSampler`` serves the sampler's order."""
+
+    def __init__(self, size: int) -> None:
+        self.size = size
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, ids):
+        import torch
+
+        return torch.as_tensor(ids)
 
 
 def gloo_worker(rank: int, port: int) -> None:
@@ -124,6 +190,13 @@ def gloo_worker(rank: int, port: int) -> None:
         el = parallel.sharded_elastic_indices(
             N_IMAGENET, W, None, None, GLOO_LAYERS, mesh=mesh,
             local_seeds=GLOO_LOCAL[rank])
+        mspec = pt.MixtureSpec(M1_SOURCES, M1_WEIGHTS, windows=W)
+        mkw = dict(epoch_samples=GLOO_MIX_SAMPLES)
+        mrow = parallel.sharded_mixture_indices(
+            mspec, None, None, mesh=mesh, local_seeds=GLOO_LOCAL[rank], **mkw)
+        mel = parallel.sharded_mixture_elastic_indices(
+            mspec, None, None, GLOO_LAYERS, mesh=mesh,
+            local_seeds=GLOO_LOCAL[rank], **mkw)
         torch.cuda.synchronize()
         launches = dict(ck.launches)
         lo, hi, ep = GLOO_LOCAL[0]
@@ -132,15 +205,27 @@ def gloo_worker(rank: int, port: int) -> None:
         chain, _, ns = core.elastic_chain(N_IMAGENET, GLOO_LAYERS, 2)
         want_el = pt.elastic_indices_cuda(N_IMAGENET, W, seed0, ep, rank, 2,
                                           ns, chain)
+        want_m = pt.mixture_epoch_indices_cuda(mspec, seed0, ep, rank, 2,
+                                               **mkw)
+        want_mel = pt.mixture_elastic_indices_cuda(mspec, seed0, ep, rank, 2,
+                                                   GLOO_LAYERS, **mkw)
         lo, hi, ep = GLOO_LOCAL[rank]
         own = pt.epoch_indices_cuda(N_IMAGENET, W, lo | (hi << 32), ep, rank,
                                     2)
+        own_m = pt.mixture_epoch_indices_cuda(mspec, lo | (hi << 32), ep,
+                                              rank, 2, **mkw)
         print(json.dumps({
-            "rank": rank, "is_cuda": row.is_cuda and el.is_cuda,
+            "rank": rank,
+            "is_cuda": all(t.is_cuda for t in (row, el, mrow, mel)),
             "lanes": row.numel(), "elastic_lanes": el.numel(),
+            "mixture_lanes": mrow.numel(), "mixture_elastic_lanes":
+                mel.numel(),
             "row_equal": torch.equal(row, want),
             "elastic_equal": torch.equal(el, want_el),
+            "mixture_equal": torch.equal(mrow, want_m),
+            "mixture_elastic_equal": torch.equal(mel, want_mel),
             "own_seed_differs": not torch.equal(own, want),
+            "own_mixture_seed_differs": not torch.equal(own_m, want_m),
             "launches": launches,
         }))
     finally:
@@ -161,13 +246,14 @@ def main() -> None:
         from partiallyshuffledistributedsampler_tpu_torch.ops import (
             core,
             cuda_kernel as ck,
+            mixture as M,
         )
     except ImportError as exc:
         fail(f"the package is not importable here ({exc}); run from the "
              "repository root")
     import numpy as np
     import torch.distributed as dist
-    from torch.utils.data import DataLoader, TensorDataset
+    from torch.utils.data import BatchSampler, DataLoader, TensorDataset
 
     dev = torch.device("cuda")
     stats = {k: {"err": 0} for k in ck.launches}
@@ -183,7 +269,8 @@ def main() -> None:
           f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     ck.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
+          f"{len(ck._SOURCES)} sources in parallel)")
     for line in ck.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
@@ -198,6 +285,17 @@ def main() -> None:
           "golden 1 differs")
     check(g2[:8].tolist() == [91, 90, 77, 69, 83, 67, 95, 79],
           "golden 2 differs")
+    for pv, (head8, total) in MIX_GOLDENS.items():
+        spec = pt.MixtureSpec([1000, 500, 2500], [5, 1, 4], windows=64,
+                              block=100, pattern_version=pv)
+        before = ck.launches["mixture_fused"]
+        g = pt.mixture_epoch_indices_cuda(spec, 7, 3, 0, 1)
+        check(g.is_cuda and ck.launches["mixture_fused"] == before + 1,
+              "the mixture golden did not run the mixture kernel")
+        print(f"mixture golden v{pv}: {g[:8].tolist()} sum "
+              f"{int(g.long().sum())}")
+        check(g[:8].tolist() == head8 and int(g.long().sum()) == total,
+              f"mixture golden v{pv} differs")
 
     # ---------------------------------------------------------------- 3
     def hold(name, got, want, label):
@@ -339,6 +437,120 @@ def main() -> None:
     print(f"stream_indices_at_cuda n=1e10: 4096 probes on the card, int64, "
           f"max {int(got.max())}, equal to the host law: {ok}")
     check(ok, "random access at n=1e10 differs from the plain law")
+
+    # ------------------------------------ 3c: the mixture kernels (§8)
+    m1 = pt.MixtureSpec(M1_SOURCES, M1_WEIGHTS, windows=W)
+    m3 = pt.MixtureSpec(M3_SOURCES, M3_WEIGHTS, windows=W)
+    s300 = pt.MixtureSpec([2_000_000 + 17_000 * i for i in range(300)],
+                          [1 + i % 13 for i in range(300)], windows=W,
+                          block=4096)
+
+    def mix_sizes(spec, es, world):
+        """(num_samples, uint64 positions?) of a mixture epoch."""
+        _t, ns, total = M.mixture_epoch_sizes(spec, es, world, False)
+        return ns, total + spec.block > core.INT32_MAX
+
+    def mix_lanes(spec, es, world, rank, seed=0, epoch=1):
+        """Lanes of this rank's mixture stream that are body lanes of
+        their source (two bijections) or tail lanes (one), and the lanes
+        in or near a source's tail window: this run's data, by the plain
+        law on the card, in chunks."""
+        ns, wide = mix_sizes(spec, es, world)
+        body_s = torch.tensor([(n // w) * w for n, w in zip(spec.sources,
+                                                            spec.windows)],
+                              device=dev)
+        tail, near = 0, []
+        for c0 in range(0, ns, 25_000_000):
+            t = torch.arange(c0, min(ns, c0 + 25_000_000), device=dev)
+            s, _pas, u = M.lane_draws(rank + world * t, spec, seed, epoch,
+                                      wide=wide)
+            d = u - body_s[s]
+            tail += int((d >= 0).sum())
+            near.append(t[d >= -64])
+        return ns - tail, tail, torch.cat(near)
+
+    def mix_fused(spec, rank, world, es=None, seed=0, epoch=1, **kw):
+        """The mixture kernel's output for a rank, and its plain version
+        on the same inputs."""
+        ns, wide = mix_sizes(spec, es, world)
+        args = dict(rank=rank, world=world, num_samples=ns, wide_pos=wide,
+                    **kw)
+        keys = ck.mixture_source_keys(spec, seed, epoch)
+        return (ck.mixture_fused(keys, spec, seed, epoch, **args),
+                ck.mixture_fused_ref(keys, spec, seed, epoch, **args))
+
+    for spec, label in ((m1, "M1"), (m3, "M3"), (s300, "S=300")):
+        hold("mixture_source_keys", ck.mixture_source_keys(spec, 0, 1),
+             ck.mixture_source_keys_ref(spec, 0, 1, device=dev),
+             f"{label}: {spec.num_sources} sources, 24 rounds")
+    t = triple_of(0x1_0000_0007, 3)
+    hold("mixture_source_keys", ck.mixture_source_keys(m1, None, None,
+                                                       triple=t),
+         ck.mixture_source_keys(m1, 0x1_0000_0007, 3),
+         "M1 device triple against scalars")
+    for world, ranks in ((256, (0, 255)), (32, (5,))):
+        for rank in ranks:
+            got, want = mix_fused(m1, rank, world)
+            hold("mixture_fused", got, want,
+                 f"M1 world={world} rank={rank} (all {got.numel()} lanes)")
+    for label, spec, kw in (
+            ("blocked", m1, dict(partition="blocked")),
+            ("shuffle=False", m1, dict(shuffle=False)),
+            ("pattern_version=1", pt.MixtureSpec(
+                M1_SOURCES, M1_WEIGHTS, windows=W, pattern_version=1), {})):
+        hold("mixture_fused", *mix_fused(spec, 5, 256, **kw),
+             f"M1 {label} world=256 rank=5")
+    for rank in (0, 255):
+        got, want = mix_fused(m1, rank, 256, es=M2_SAMPLES)
+        check(got.dtype == torch.int32, "M2 ids are not int32")
+        hold("mixture_fused", got, want,
+             f"M2 (M1 over 1e10 samples, uint64 positions) world=256 "
+             f"rank={rank} (all {got.numel()} lanes)")
+        got, want = mix_fused(m3, rank, 256)
+        high = int(got.max())
+        hold("mixture_fused", got, want,
+             f"M3 (6 sources, 1e10 ids, int64) world=256 rank={rank} (all "
+             f"{got.numel()} lanes), max id {high}")
+        check(got.dtype == torch.int64 and high > 2**31,
+              "M3 ids are not int64 past 2^31")
+    hold("mixture_fused", *mix_fused(s300, 7, 256),
+         "S=300 (keys and source table read from global memory) world=256 "
+         "rank=7")
+    for spec, label in ((m1, "M1"), (m3, "M3")):
+        got = pt.mixture_epoch_indices_cuda(spec, None, None, 5, 256,
+                                            triple=t)
+        hold("mixture_fused", got,
+             pt.mixture_epoch_indices_cuda(spec, 0x1_0000_0007, 3, 5, 256),
+             f"{label} world=256 device triple against scalars")
+    before = dict(ck.launches)
+    masked = pt.mixture_epoch_indices_cuda(m1, 0, 1, 5, 256, fused=False)
+    ok = (ck.launches == before and masked.is_cuda
+          and torch.equal(masked, pt.mixture_epoch_indices_cuda(m1, 0, 1, 5,
+                                                                256)))
+    print(f"mixture fused=False route (the masked torch evaluator on the "
+          f"card, no kernel) equals the kernel route: {ok}")
+    check(ok, "the masked mixture route differs or launched a kernel")
+    # world 8: 125M lanes, held on >= 1M sampled lanes and every lane in or
+    # near a source's tail window, against the plain random-access law
+    ns8, _ = mix_sizes(m1, None, 8)
+    before = ck.launches["mixture_fused"]
+    out = pt.mixture_epoch_indices_cuda(m1, 0, 1, 3, 8)
+    check(ck.launches["mixture_fused"] == before + 1, "M1 world 8: no kernel")
+    _b, _t, near = mix_lanes(m1, None, 8, 3)
+    lanes = torch.unique(torch.cat([
+        torch.from_numpy(np.random.default_rng(2).choice(
+            ns8, 1_000_000, replace=False)).to(dev),
+        torch.arange(4, device=dev), torch.arange(ns8 - 4, ns8, device=dev),
+        near]))
+    check(lanes.numel() >= 1_000_000, f"only {lanes.numel()} lanes sampled")
+    hold("mixture_fused", out[lanes],
+         M.mixture_stream_at_generic(3 + 8 * lanes, m1, 0, 1,
+                                     big_positions=False, amortize=False),
+         f"M1 world=8 rank=3: {lanes.numel()} of {ns8} lanes (seeded, "
+         f"first, last, {near.numel()} in or near a source's tail window) "
+         "against the plain random-access law")
+    del out, got, want, masked, lanes, near
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------ main path
     ck.reset_launches()
@@ -556,8 +768,156 @@ def main() -> None:
           f"set_sync_debug_mode('error') with no error: "
           f"{sh_elastic.numel()} lanes, equal to the host law: {ok}")
     check(ok, "sharded_elastic_indices at n=1e10 differs")
-    dist.destroy_process_group()
     del s, it, epochs, blocked, elastic, reseeds, want
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- slice-3 main path
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step(c, b):
+        return c + b.sum()
+
+    def step_collect(c, b):
+        return c + b.sum(), b.sum()
+
+    ck.reset_launches()
+    regens = 0
+    # 11: the mixture sampler under a real DataLoader, M1 at world 256
+    served = {}
+    for workers in (0, 2):
+        s = pt.PartialShuffleMixtureSampler(M1_SOURCES, M1_WEIGHTS,
+                                            num_replicas=256, rank=9,
+                                            windows=W)
+        s.set_epoch(1)  # the kernels + a pinned non_blocking copy
+        regens += 1
+        served[workers] = torch.cat(list(DataLoader(
+            IdDataset(m1.total_sources_len), batch_size=None,
+            sampler=BatchSampler(s, 8192, False), num_workers=workers)))
+    # 12: MixtureEpochIterator at M1 / world 256
+    it = pt.MixtureEpochIterator(m1, 512, seed=0, rank=5, world=256)
+    check(it.steps_per_epoch == 3_906_250 // 512, "steps per epoch")
+    batches = list(it.epoch(0))  # regen 0, prefetch 1
+    check(all(b.is_cuda and b.dtype == torch.int32 and b.numel() == 512
+              for b in batches), "mixture batches are not CUDA int32[512]")
+    check(1 in it._cache, "the next mixture epoch was not prefetched")
+    it_epoch0 = torch.cat(batches)
+    it_run1 = it.run_epoch(1, step, zero)  # from the prefetch; prefetch 2
+    before = ck.launches["mixture_fused"]
+    it_runs, it_ys = it.run_epochs(3, 2, step_collect, zero, collect=True)
+    per_epochs = ck.launches["mixture_fused"] - before
+    mix_elastic = torch.cat(list(it.elastic_epoch(2, MIX_LAYERS)))
+    regens += 2 + 1 + 2 + 1
+    # 13: mixture seed agreement over the NCCL group of one, no host sync
+    agreed_kw = dict(mesh=mesh, epoch_samples=MIX_AGREED_SAMPLES)
+    parallel.sharded_mixture_indices(m1, 0, 0, **agreed_kw)  # warm-up
+    parallel.sharded_mixture_elastic_indices(m1, 0, 0, MIX_AGREED_LAYERS,
+                                             mesh=mesh)
+    torch.cuda.synchronize()
+    mix_reseeds, mix_walls = [], []
+    t_all = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for epoch in range(1, 33):
+            t = time.perf_counter()
+            mix_reseeds.append(parallel.sharded_mixture_indices(
+                m1, 0, epoch, **agreed_kw))
+            mix_walls.append((time.perf_counter() - t) * 1e3)
+        mix_sh_elastic = parallel.sharded_mixture_elastic_indices(
+            m1, 0, 1, MIX_AGREED_LAYERS, mesh=mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    mix_all_ms = (time.perf_counter() - t_all) * 1e3
+    regens += 2 + 32 + 1
+    launches3 = dict(ck.launches)
+    print(f"kernels (slice-3 main path): {json.dumps(launches3)}")
+    for name in SLICE3:
+        check(launches3[name] == regens,
+              f"kernel {name} ran {launches3[name]} times for {regens} "
+              "mixture regens on the slice-3 main path")
+    for name in INDEX_KERNELS:
+        check(launches3[name] == 0,
+              f"index kernel {name} ran on the mixture main path")
+    check(per_epochs == 2, f"run_epochs launched {per_epochs} regens for 2 "
+          "epochs")
+    # 14: the single-source runners, C4 1B / 8192 at world 256
+    ck.reset_launches()
+    it1 = pt.DeviceEpochIterator(N_C4, W, 512, seed=0, rank=5, world=256)
+    one_run0 = it1.run_epoch(0, step, zero)  # regen 0, prefetch 1
+    one_runs, one_ys = it1.run_epochs(1, 2, step_collect, zero,
+                                      collect=True)
+    torch.cuda.synchronize()
+    launches3b = dict(ck.launches)
+    print(f"kernels (single-source runners): {json.dumps(launches3b)}")
+    check(launches3b["index_amortized"] == 4
+          and launches3b["window_order_ids"] == 4
+          and not any(launches3b[k] for k in SLICE3),
+          "the single-source runners did not regenerate once per epoch "
+          "through the index kernels")
+
+    # the slice-3 main path's outputs against the law
+    whole = it.steps_per_epoch * 512
+    ok = all(torch.equal(v.cpu(), served[0].cpu()) for v in served.values())
+    want = pt.mixture_epoch_indices_cuda(m1, 0, 1, 9, 256)
+    ok = ok and torch.equal(served[0], want.cpu().long())
+    shares = np.bincount(m1.decompose(served[0].numpy())[0], minlength=3)
+    print(f"mixture sampler M1 world=256 rank=9 through a DataLoader "
+          f"(num_workers 0 and 2): {served[0].numel()} ids equal to the "
+          f"kernel's; per-source shares {(shares / shares.sum()).round(4)}: "
+          f"{ok}; regen timer {s.regen_timer.report()}")
+    check(ok, "the mixture sampler's stream differs")
+    epochs = {e: pt.mixture_epoch_indices_cuda(m1, 0, e, 5, 256)
+              for e in range(5)}
+    ok = (torch.equal(it_epoch0, epochs[0][:whole])
+          and torch.equal(epochs[0], M.mixture_epoch_indices_generic(
+              m1, 0, 0, 5, 256, device=dev))
+          and int(it_run1) == int(epochs[1][:whole].long().sum())
+          and int(it_runs) == sum(int(epochs[e][:whole].long().sum())
+                                  for e in (3, 4))
+          and it_ys.shape == (2, it.steps_per_epoch)
+          and torch.equal(it_ys[1], epochs[4][:whole].long().view(
+              -1, 512).sum(1)))
+    print(f"MixtureEpochIterator M1 world=256: epoch() {len(batches)} CUDA "
+          f"int32 views (next epoch prefetched), run_epoch, run_epochs over "
+          f"2 epochs ({per_epochs} kernel regens), equal to the law: {ok}")
+    check(ok, "MixtureEpochIterator / its runners differ from the law")
+    want = M.mixture_elastic_indices_generic(m1, 0, 2, 5, 256, MIX_LAYERS,
+                                             device=dev)
+    ok = mix_elastic.is_cuda and torch.equal(mix_elastic,
+                                             want[:mix_elastic.numel()])
+    print(f"MixtureEpochIterator.elastic_epoch M1 after {MIX_LAYERS} (8 -> "
+          f"256): {mix_elastic.numel()} ids, equal to the plain law: {ok}")
+    check(ok, "the mixture elastic_epoch differs")
+    ok = all(torch.equal(r, pt.mixture_epoch_indices_cuda(
+        m1, 0, e, 0, 1, epoch_samples=MIX_AGREED_SAMPLES))
+        for e, r in enumerate(mix_reseeds, start=1))
+    print(f"sharded_mixture_indices M1 over {MIX_AGREED_SAMPLES} samples, "
+          f"NCCL group of one: 32 reseeds under set_sync_debug_mode('error') "
+          f"with no error, each equal to mixture_epoch_indices_cuda with the "
+          f"host seed: {ok}; host wall per reseed median "
+          f"{float(np.median(mix_walls)):.4f} ms min {min(mix_walls):.4f} "
+          f"ms, 32 reseeds to ready {mix_all_ms:.4f} ms | {card}")
+    check(ok, "sharded_mixture_indices differs")
+    want = M.mixture_elastic_indices_generic(m1, 0, 1, 0, 1,
+                                             MIX_AGREED_LAYERS, device=dev)
+    ok = mix_sh_elastic.is_cuda and torch.equal(mix_sh_elastic, want)
+    print(f"sharded_mixture_elastic_indices M1 after {MIX_AGREED_LAYERS} "
+          f"under set_sync_debug_mode('error') with no error: "
+          f"{mix_sh_elastic.numel()} ids, equal to the plain law: {ok}")
+    check(ok, "sharded_mixture_elastic_indices differs")
+    c4 = {e: pt.epoch_indices_cuda(N_C4, W, 0, e, 5, 256) for e in range(3)}
+    ok = (int(one_run0) == int(c4[0][:whole].long().sum())
+          and int(one_runs) == sum(int(c4[e][:whole].long().sum())
+                                   for e in (1, 2))
+          and torch.equal(one_ys[0], c4[1][:whole].long().view(-1, 512)
+                          .sum(1)))
+    print(f"DeviceEpochIterator C4 1B world=256: run_epoch and run_epochs "
+          f"over 2 epochs, one kernel regen per epoch, equal to the law: "
+          f"{ok}")
+    check(ok, "the single-source runners differ from the law")
+    dist.destroy_process_group()
+    del (served, it, batches, it_epoch0, epochs, mix_elastic, mix_reseeds,
+         mix_sh_elastic, want, it1, c4)
     torch.cuda.empty_cache()
 
     # 10: two gloo processes on the one card, divergent local seeds
@@ -582,9 +942,13 @@ def main() -> None:
         res = json.loads(out.strip().splitlines()[-1])
         print(f"gloo rank {res['rank']} of 2 on the one card: {res}")
         check(res["is_cuda"] and res["row_equal"] and res["elastic_equal"]
-              and res["launches"]["index_amortized"] == 1,
+              and res["mixture_equal"] and res["mixture_elastic_equal"]
+              and res["launches"]["index_amortized"] == 1
+              and res["launches"]["mixture_fused"] == 2
+              and res["launches"]["mixture_source_keys"] == 2,
               f"gloo rank {res['rank']}: rank 0's seed did not win")
-        check(res["rank"] == 0 or res["own_seed_differs"],
+        check(res["rank"] == 0 or (res["own_seed_differs"]
+                                   and res["own_mixture_seed_differs"]),
               "rank 1's own seed gives rank 0's row: the check is vacuous")
 
     # ---------------------------------------------------------------- 6
@@ -668,6 +1032,11 @@ def main() -> None:
         ))
     nwl = N_LLAMA // W
     kul = ck.window_order_ids(N_LLAMA, W, 0, 1)
+    timings.append((
+        "window_order_ids", f"n=1e10 W=8192 nw={nwl}",
+        lambda: ck.window_order_ids(N_LLAMA, W, 0, 1),
+        lambda: ck.window_order_ids_ref(N_LLAMA, W, 0, 1, device=dev),
+        nwl * son, nwl * 4))
     for world, rank in ((256, 5), (8, 3)):
         ns, _ = core.shard_sizes(N_LLAMA, world, False)
         body = nwl * (W // world)
@@ -726,8 +1095,83 @@ def main() -> None:
                 n, W, None, None, 5, 256, triple=t3), 20)
             line += f", device triple {tri_ms:.4f} ms"
         print(f"{line} | {card}")
-    print("library call: none (no single PyTorch call computes this law; "
-          "torch.randperm is a different function)")
+    del ku
+    torch.cuda.empty_cache()
+
+    # the mixture kernels: M1 at world 256 / 32 / 8, M2, M3
+    def table_bytes(spec):
+        """The kernels' inputs, each read once: pattern, prefix counts,
+        source table and keys buffer."""
+        return 4 * (spec.block * (1 + spec.num_sources)
+                    + 8 * spec.num_sources + ck.mixture_key_words(spec, 24))
+
+    words = ck.mixture_key_words(m1, 24)
+    ms = gpu_ms(lambda: ck.mixture_source_keys(m1, 0, 1), 200)
+    plain = gpu_ms(lambda: ck.mixture_source_keys_ref(m1, 0, 1, device=dev),
+                   20)
+    b_ms, b_by = bound(words * KEY_WORD_OPS, words * 4 + 32 * 3)
+    print(f"time mixture_source_keys M1 ({words} words): kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
+          f"{b_ms / ms:.1%} of bound (one launch) | {card}")
+    rows["mixture_source_keys"] = (ms, plain, b_ms, b_by)
+    son = 24 * ROUND_OPS
+    for label, spec, es, world, rank in (
+            ("M1 world=256", m1, None, 256, 5), ("M1 world=32", m1, None, 32,
+                                                5),
+            ("M1 world=8", m1, None, 8, 3),
+            ("M2 world=256", m1, M2_SAMPLES, 256, 5),
+            ("M3 world=256", m3, None, 256, 5)):
+        ns, wide = mix_sizes(spec, es, world)
+        body, tail, _near = mix_lanes(spec, es, world, rank)
+        lane = MIX_LANE_OPS + (WIDE_OPS if wide else 0)
+        ops = (body * (lane + BIJ_KEY_OPS + INNER_KEY_OPS + 2 * son)
+               + tail * (lane + BIJ_KEY_OPS + son))
+        nbytes = ns * spec.out_dtype().itemsize + table_bytes(spec)
+        keys = ck.mixture_source_keys(spec, 0, 1)
+        kw = dict(rank=rank, world=world, num_samples=ns, wide_pos=wide)
+        ms = gpu_ms(lambda s=spec, k=keys, kw=kw: ck.mixture_fused(
+            k, s, 0, 1, **kw), 5 if world == 8 else 20)
+        plain = None
+        if world != 8:  # world 8's plain version needs ~30 GB of int64
+            torch.cuda.reset_peak_memory_stats()
+            plain = gpu_ms(lambda s=spec, k=keys, kw=kw: ck.mixture_fused_ref(
+                k, s, 0, 1, **kw), 3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        b_ms, b_by = bound(ops, nbytes)
+        plain_s = ("not measured" if plain is None
+                   else f"{plain:.4f} ms ({peak:.1f} GiB peak)")
+        print(f"time mixture_fused {label}: kernel {ms:.4f} ms, plain "
+              f"{plain_s}, bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G "
+              f"int32 ops over {body} body + {tail} tail lanes, "
+              f"{nbytes / 1e6:.1f} MB), {b_ms / ms:.1%} of bound | {card}")
+        rows.setdefault("mixture_fused", (ms, plain, b_ms, b_by))
+        del keys
+        torch.cuda.empty_cache()
+    for label, spec, es, world in (("M1", m1, None, 256), ("M1", m1, None, 32),
+                                   ("M1", m1, None, 8),
+                                   ("M2", m1, M2_SAMPLES, 256),
+                                   ("M3", m3, None, 256)):
+        fn = lambda s=spec, es=es, w=world: pt.mixture_epoch_indices_cuda(
+            s, 0, 1, 5 % w, w, epoch_samples=es)
+        reps = 5 if world == 8 else 20
+        dev_ms = gpu_ms(fn, reps)
+        walls = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        line = (f"mixture regen per epoch {label} world={world}: device "
+                f"{dev_ms:.4f} ms (2 launches), host wall to ready median "
+                f"{float(np.median(walls)):.4f} ms min {min(walls):.4f} ms")
+        if world == 256:
+            t3 = triple_of(0, 1)
+            tri_ms = gpu_ms(lambda s=spec, es=es: pt.mixture_epoch_indices_cuda(
+                s, None, None, 5, 256, epoch_samples=es, triple=t3), 20)
+            line += f", device triple {tri_ms:.4f} ms"
+        print(f"{line} | {card}")
+    print("library call: none (no single PyTorch call computes this law or "
+          "the mixture's; torch.randperm is a different function)")
 
     replaces = {
         "window_order_ids":
@@ -740,6 +1184,10 @@ def main() -> None:
             "partiallyshuffledistributedsampler_tpu/ops/core.py:527",
         "index_amortized_wide":
             "partiallyshuffledistributedsampler_tpu/ops/xla.py:87",
+        "mixture_source_keys":
+            "partiallyshuffledistributedsampler_tpu/ops/mixture.py:534",
+        "mixture_fused":
+            "partiallyshuffledistributedsampler_tpu/ops/mixture.py:426",
     }
     kernels = []
     for name in replaces:
@@ -747,10 +1195,12 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "partiallyshuffledistributedsampler_tpu_torch/csrc/"
-                      "index_kernels.cu",
+                      + ("mixture_kernels.cu" if name in SLICE3
+                         else "index_kernels.cu"),
             "replaces": replaces[name],
-            # the count over the two main paths' runs
-            "launches": launches.get(name, 0) + launches2.get(name, 0),
+            # the count over the main paths' runs
+            "launches": sum(run.get(name, 0) for run in (
+                launches, launches2, launches3, launches3b)),
             "max_abs_err": stats[name]["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

@@ -7,13 +7,18 @@ GPU by hand-written CUDA kernels (``ops/cuda_kernel.py``), behind the
 The law is the one frozen in ``SPEC.md``: the same
 ``(n, window, seed, epoch, rank, world, flags)`` gives the same indices as
 the JAX package ``partiallyshuffledistributedsampler_tpu``, and the
-sampler checkpoints of the two packages are interchangeable.
+sampler checkpoints of the two packages are interchangeable.  The weighted
+multi-corpus mixture (SPEC.md §8: ``MixtureSpec``,
+``PartialShuffleMixtureSampler``, ``MixtureEpochIterator``) runs on the
+card through its own kernels.
 """
 
 from .ops import (  # noqa: F401
     DEFAULT_ROUNDS,
     DEFAULT_WINDOW,
+    DEFAULT_BLOCK,
     CudaUnavailableError,
+    MixtureSpec,
     elastic_indices_cpu,
     elastic_indices_cuda,
     ensure_index_backend,
@@ -21,12 +26,20 @@ from .ops import (  # noqa: F401
     epoch_indices_cuda,
     epoch_indices_host,
     full_epoch_stream_cpu,
+    mixture_elastic_indices_cpu,
+    mixture_elastic_indices_cuda,
+    mixture_epoch_indices_cpu,
+    mixture_epoch_indices_cuda,
+    mixture_stream_at_cpu,
+    mixture_stream_at_cuda,
     shard_sizes,
     stream_indices_at_cpu,
     stream_indices_at_cuda,
 )
 from .sampler import (  # noqa: F401
     DeviceEpochIterator,
+    MixtureEpochIterator,
+    PartialShuffleMixtureSampler,
     PartiallyShuffleDistributedSampler,
     StatefulDataLoader,
     batch_index_window,

@@ -1,6 +1,6 @@
 // Hand-written CUDA kernels for the epoch-index law (SPEC.md) on Hopper.
 //
-// Five kernels, one set of __device__ functions for the law:
+// Five kernels over the law's __device__ functions in law.cuh:
 //
 //   window_order_ids      -> replaces the window-order pre-pass
 //                            partiallyshuffledistributedsampler_tpu/ops/xla.py
@@ -59,11 +59,8 @@
 // a software sequence on the GPU); fast-divmod magic numbers are a known
 // next step.
 //
-// Every operation keeps the order of ops/core.py: uint32 wrap-around
-// arithmetic throughout, partner = K_r + (m - x) then -m if >= m, the
-// canonical member as an unsigned max by select, the decision bit
-// mix32(c ^ key2 ^ r*RC_BIT) & 1, m <= 1 returns x, and the index clips of
-// the window id and the tail offset.
+// Every operation keeps the order of ops/core.py (law.cuh), and the index
+// clips of the window id and the tail offset.
 //
 // Build (plain C ABI, loaded with ctypes by ops/cuda_kernel.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -71,26 +68,9 @@
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() (0 on success).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "law.cuh"
 
 namespace {
-
-constexpr uint32_t GOLDEN = 0x9E3779B9u;
-constexpr uint32_t RC_BIT = 0x7FEB352Du;
-constexpr uint32_t C_SEED_HI = 0x85EBCA6Bu;
-constexpr uint32_t C_EPOCH = 0xC2B2AE35u;
-constexpr uint32_t C_OUTER = 0xA5A5A5A5u;
-constexpr uint32_t C_INNER = 0x5A5A5A5Au;
-constexpr uint32_t C_TAIL = 0x3C3C3C3Cu;
-constexpr uint32_t C_WIN = 0x27D4EB2Fu;
-constexpr uint32_t C_BIT = 0x94D049BBu;
-constexpr uint32_t C_PAIR = 0x165667B1u;
-
-constexpr uint32_t INT32_MAX_U = 0x7FFFFFFFu;
-constexpr int MAX_ROUNDS = 64;
-constexpr int THREADS = 256;
-constexpr int BLOCKS_PER_SM = 8;
 
 // The static configuration and the per-call scalars of one launch.
 struct LawParams {
@@ -111,15 +91,6 @@ struct Schedules {
   uint32_t outer[MAX_ROUNDS], inner[MAX_ROUNDS], tail[MAX_ROUNDS];
 };
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
 // `seeds` (nullable): the triple in device memory, read in place of the
 // launch arguments.
 __device__ __forceinline__ Keys make_keys(const LawParams &P,
@@ -130,45 +101,13 @@ __device__ __forceinline__ Keys make_keys(const LawParams &P,
     hi = __ldg(seeds + 1);
     ep = __ldg(seeds + 2);
   }
-  uint32_t k = mix32(lo ^ GOLDEN);
-  k = mix32(k ^ mix32(hi ^ C_SEED_HI));
-  k = mix32(k ^ mix32(ep ^ C_EPOCH));
+  const uint32_t k = epoch_key(seed_key(lo, hi), ep);
   Keys keys;
   keys.ek = k;
   keys.okey = mix32(k ^ C_OUTER);
   keys.tkey = mix32(k ^ C_TAIL);
   keys.pair_inner = mix32(k ^ C_PAIR);
   return keys;
-}
-
-// Block-cooperative: K_r for r < rounds.  A domain of m <= 1 never reads
-// its schedule (swap_or_not returns x), so it is left at 0 and m = 0 never
-// divides.
-__device__ __forceinline__ void load_round_keys(uint32_t *ks, uint32_t pair,
-                                                uint32_t m, int rounds) {
-  for (int r = threadIdx.x; r < rounds; r += blockDim.x)
-    ks[r] = m > 1 ? mix32(pair ^ ((uint32_t)r * GOLDEN)) % m : 0u;
-}
-
-// Swap-or-not keyed bijection on [0, m), decision key `key`, pairing
-// constants `ks` (SPEC.md §2; ops/core.py swap_or_not).
-__device__ __forceinline__ uint32_t swap_or_not(uint32_t x, uint32_t m,
-                                                const uint32_t *ks,
-                                                uint32_t key, int rounds) {
-  if (m <= 1) return x;
-  const uint32_t key2 = mix32(key ^ C_BIT);
-  for (int r = 0; r < rounds; ++r) {
-    uint32_t partner = ks[r] + (m - x);
-    partner = partner >= m ? partner - m : partner;
-    const uint32_t c = x > partner ? x : partner;
-    const uint32_t b = mix32(c ^ key2 ^ ((uint32_t)r * RC_BIT));
-    x = (b & 1u) ? partner : x;
-  }
-  return x;
-}
-
-__device__ __forceinline__ uint32_t inner_key(const Keys &k, uint32_t wid) {
-  return mix32(k.ek ^ C_INNER ^ mix32(wid ^ C_WIN));
 }
 
 // The windowed permutation pi(p) for one position p in [0, n)
@@ -188,7 +127,7 @@ __device__ __forceinline__ Pos windowed_perm(Pos p, const LawParams &P,
                             ? swap_or_not(j, P.nw, s.outer, k.okey, P.rounds)
                             : j;
     return (Pos)kw * P.window +
-           swap_or_not(r0, P.window, s.inner, inner_key(k, kw), P.rounds);
+           swap_or_not(r0, P.window, s.inner, inner_key(k.ek, kw), P.rounds);
   }
   uint32_t tpos = (uint32_t)(p - body_len);
   tpos = tpos > P.tail_len - 1 ? P.tail_len - 1 : tpos;
@@ -270,7 +209,7 @@ __global__ void __launch_bounds__(THREADS)
       const uint32_t kex = __ldg(ku + slot);
       const uint32_t r0 = P.rank + P.world * (t % m);
       v = (Pos)kex * P.window +
-          swap_or_not(r0, P.window, s.inner, inner_key(k, kex), P.rounds);
+          swap_or_not(r0, P.window, s.inner, inner_key(k.ek, kex), P.rounds);
     } else {
       v = windowed_perm<Pos>(stream_position<Pos>((Pos)t, P), P, k, s);
     }
@@ -314,15 +253,6 @@ bool bad_width(uint64_t n, bool wide) { return wide != (n > INT32_MAX_U); }
 bool bad_rank(uint32_t world, uint32_t rank, uint64_t num_samples) {
   return world == 0 || world > INT32_MAX_U || rank >= world ||
          num_samples == 0;
-}
-
-unsigned grid_for(uint64_t count) {
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const uint64_t need = (count + THREADS - 1) / THREADS;
-  const uint64_t cap = (uint64_t)sms * BLOCKS_PER_SM;
-  return (unsigned)(need < cap ? need : cap);
 }
 
 template <typename Pos, typename Out>

@@ -1,0 +1,100 @@
+// The epoch-index law (SPEC.md §1-§3) as __device__ functions, shared by
+// index_kernels.cu and mixture_kernels.cu.  Every operation keeps the order
+// of ops/core.py: uint32 wrap-around arithmetic throughout, partner =
+// K_r + (m - x) then -m if >= m, the canonical member as an unsigned max by
+// select, the decision bit mix32(c ^ key2 ^ r*RC_BIT) & 1, m <= 1 returns x.
+//
+// The build of each source hashes this header too (ops/cuda_kernel.py
+// library_path), so an edit here rebuilds both libraries.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr uint32_t GOLDEN = 0x9E3779B9u;
+constexpr uint32_t RC_BIT = 0x7FEB352Du;
+constexpr uint32_t C_SEED_HI = 0x85EBCA6Bu;
+constexpr uint32_t C_EPOCH = 0xC2B2AE35u;
+constexpr uint32_t C_OUTER = 0xA5A5A5A5u;
+constexpr uint32_t C_INNER = 0x5A5A5A5Au;
+constexpr uint32_t C_TAIL = 0x3C3C3C3Cu;
+constexpr uint32_t C_WIN = 0x27D4EB2Fu;
+constexpr uint32_t C_BIT = 0x94D049BBu;
+constexpr uint32_t C_PAIR = 0x165667B1u;
+
+constexpr uint32_t INT32_MAX_U = 0x7FFFFFFFu;
+constexpr int MAX_ROUNDS = 64;
+constexpr int THREADS = 256;
+constexpr int BLOCKS_PER_SM = 8;
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// The seed half of the epoch key (SPEC.md §1), before the epoch is folded.
+__device__ __forceinline__ uint32_t seed_key(uint32_t lo, uint32_t hi) {
+  return mix32(mix32(lo ^ GOLDEN) ^ mix32(hi ^ C_SEED_HI));
+}
+
+// The epoch key from the seed half: derive_epoch_key((lo, hi), ep).
+__device__ __forceinline__ uint32_t epoch_key(uint32_t seed_k, uint32_t ep) {
+  return mix32(seed_k ^ mix32(ep ^ C_EPOCH));
+}
+
+// Per-source-window key of the inner bijection.
+__device__ __forceinline__ uint32_t inner_key(uint32_t ek, uint32_t wid) {
+  return mix32(ek ^ C_INNER ^ mix32(wid ^ C_WIN));
+}
+
+// The pairing constant K_r = mix32(pair ^ r*GOLDEN) mod m of round r.  A
+// domain of m <= 1 never reads its schedule (swap_or_not returns x), so it
+// is 0 there and m = 0 never divides.
+__device__ __forceinline__ uint32_t round_key(uint32_t pair, uint32_t m,
+                                              int r) {
+  return m > 1 ? mix32(pair ^ ((uint32_t)r * GOLDEN)) % m : 0u;
+}
+
+// Block-cooperative: K_r for r < rounds into `ks`.
+__device__ __forceinline__ void load_round_keys(uint32_t *ks, uint32_t pair,
+                                                uint32_t m, int rounds) {
+  for (int r = threadIdx.x; r < rounds; r += blockDim.x)
+    ks[r] = round_key(pair, m, r);
+}
+
+// Swap-or-not keyed bijection on [0, m), decision key `key`, pairing
+// constants `ks` (SPEC.md §2; ops/core.py swap_or_not).
+__device__ __forceinline__ uint32_t swap_or_not(uint32_t x, uint32_t m,
+                                                const uint32_t *ks,
+                                                uint32_t key, int rounds) {
+  if (m <= 1) return x;
+  const uint32_t key2 = mix32(key ^ C_BIT);
+  for (int r = 0; r < rounds; ++r) {
+    uint32_t partner = ks[r] + (m - x);
+    partner = partner >= m ? partner - m : partner;
+    const uint32_t c = x > partner ? x : partner;
+    const uint32_t b = mix32(c ^ key2 ^ ((uint32_t)r * RC_BIT));
+    x = (b & 1u) ? partner : x;
+  }
+  return x;
+}
+
+// Blocks for a grid-stride loop over `count` elements: one per THREADS
+// elements, at most BLOCKS_PER_SM per SM.
+inline unsigned grid_for(uint64_t count) {
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const uint64_t need = (count + THREADS - 1) / THREADS;
+  const uint64_t cap = (uint64_t)sms * BLOCKS_PER_SM;
+  return (unsigned)(need < cap ? need : cap);
+}
+
+}  // namespace

@@ -1,5 +1,5 @@
-"""Permutation primitives: the law core, its CPU reference and the CUDA
-index kernels."""
+"""Permutation primitives: the law core, its CPU reference, the weighted
+mixture (SPEC.md §8) and the CUDA kernels."""
 
 import numpy as np
 
@@ -25,6 +25,19 @@ from .cuda import (  # noqa: F401
     stream_indices_at_cuda,
 )
 from .cuda_kernel import CudaUnavailableError, require_cuda  # noqa: F401
+from .mixture import (  # noqa: F401
+    DEFAULT_BLOCK,
+    MixtureSpec,
+    build_mixture_evaluator,
+    mixture_elastic_indices_cpu,
+    mixture_elastic_indices_cuda,
+    mixture_epoch_indices_cpu,
+    mixture_epoch_indices_cuda,
+    mixture_epoch_sizes,
+    mixture_stream_at_cpu,
+    mixture_stream_at_cuda,
+    source_seed,
+)
 
 def ensure_index_backend(backend: str) -> None:
     """Validate at construction that ``backend`` ('cpu' | 'cuda') can

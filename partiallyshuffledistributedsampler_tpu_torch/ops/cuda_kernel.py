@@ -1,6 +1,6 @@
-"""Wrappers of the hand-written CUDA kernels in ``csrc/index_kernels.cu``.
+"""Wrappers of the hand-written CUDA kernels in ``csrc/``.
 
-Five kernels, each with a wrapper, a plain PyTorch version and a launch
+Seven kernels, each with a wrapper, a plain PyTorch version and a launch
 counter:
 
 ====================  ===================================  ==========================
@@ -17,12 +17,18 @@ index_general_wide    ``index_general_wide_ref``           ``ops/core.py``
                                                            (uint64 positions)
 index_amortized_wide  ``index_amortized_wide_ref``         ``ops/xla.py``
                       (= ``index_amortized_ref``)          ``_epoch_indices_amortized``
+mixture_source_keys   ``mixture_source_keys_ref``          ``ops/mixture.py``
+                                                           ``_fused_mixture_eval``
+                                                           (its [S] key vectors)
+mixture_fused         ``mixture_fused_ref`` (the fused     ``ops/mixture.py``
+                      evaluator of ``ops/mixture.py``)     ``_fused_mixture_eval``
 ====================  ===================================  ==========================
 
 (paths of the JAX package ``partiallyshuffledistributedsampler_tpu``).  The
-two ``_wide`` kernels serve index spaces n >= 2^31 with int64 output; the
-others take n < 2^31 and write int32.  Each wrapper refuses the other
-width, so a wide config is never narrowed.
+two ``_wide`` index kernels serve index spaces n >= 2^31 with int64 output;
+the others take n < 2^31 and write int32.  Each wrapper refuses the other
+width, so a wide config is never narrowed.  ``mixture_fused`` takes uint32
+or uint64 positions and writes int32 or int64 ids, by the mixture's sizes.
 
 The key of a launch is ``seed`` and ``epoch`` as scalars, or ``triple``:
 an int32[3] tensor on the launch device holding the uint32 bits of
@@ -36,9 +42,11 @@ anything the kernel does not take — there is no fallback.  ``launches``
 counts kernel launches per wrapper, and nothing else.
 
 The kernels are built with ``nvcc`` at first use into ``csrc/build/`` of
-this package (named by a hash of the source, so an edited source rebuilds)
-and bound through ctypes over a plain C ABI.  Nothing is built or imported
-from CUDA when this module is imported.
+this package, one shared library per source (``index_kernels.cu``,
+``mixture_kernels.cu``), both compiled at once and each named by a hash of
+every file its build reads (the source and ``law.cuh``), so an edited file
+rebuilds.  They are bound through ctypes over a plain C ABI.  Nothing is
+built or imported from CUDA when this module is imported.
 """
 
 from __future__ import annotations
@@ -48,16 +56,18 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Optional
-
+import numpy as np
 import torch
 
-from . import core
+from . import core, mixture
 
 _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-_SOURCE = os.path.join(_CSRC, "index_kernels.cu")
+#: one shared library per source; every build also reads ``_HEADER``
+_SOURCES = {"index": os.path.join(_CSRC, "index_kernels.cu"),
+            "mixture": os.path.join(_CSRC, "mixture_kernels.cu")}
+_HEADER = os.path.join(_CSRC, "law.cuh")
 _BUILD_DIR = os.path.join(_CSRC, "build")
 #: nvcc flags: Hopper's sm_90a, optimised, a shared library with a C ABI;
 #: -Xptxas -v records registers and spills in ``build_log``
@@ -68,10 +78,11 @@ MAX_ROUNDS = 64
 
 #: kernel launches per wrapper (reset with ``reset_launches``)
 launches = {"window_order_ids": 0, "index_general": 0, "index_amortized": 0,
-            "index_general_wide": 0, "index_amortized_wide": 0}
+            "index_general_wide": 0, "index_amortized_wide": 0,
+            "mixture_source_keys": 0, "mixture_fused": 0}
 
-_lib: Optional[ctypes.CDLL] = None
-#: the compiler's output of the build this process loaded ("" if prebuilt)
+_libs: dict = {}
+#: the compiler's output of the builds this process made ("" if prebuilt)
 build_log = ""
 
 
@@ -108,59 +119,85 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> str:
-    """Where the build of the current source lives."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+def library_path(name: str = "index") -> str:
+    """Where the build of library ``name`` ('index' or 'mixture') of the
+    current sources lives: named by a hash of every file its build reads
+    and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (_SOURCES[name], _HEADER):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(
-        _BUILD_DIR, f"libpsds_index_kernels-{digest.hexdigest()[:16]}.so"
+        _BUILD_DIR, f"libpsds_{name}_kernels-{digest.hexdigest()[:16]}.so"
     )
 
 
-def build() -> str:
-    """Compile the kernels if this source has no build yet; return the .so
-    path.  The library is written under a temporary name and renamed, so
-    concurrent builds never load a half-written file."""
+def build() -> dict:
+    """Compile every library whose sources have no build yet, one ``nvcc``
+    per source, all started together; return ``{name: .so path}``.  Each
+    library is written under a temporary name and renamed, so concurrent
+    builds never load a half-written file."""
     global build_log
-    so = library_path()
-    if os.path.exists(so):
-        return so
+    paths = {name: library_path(name) for name in _SOURCES}
+    todo = {name: so for name, so in paths.items() if not os.path.exists(so)}
+    if not todo:
+        return paths
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}):\n{res.stderr[-4000:]}"
-        )
-    os.replace(tmp, so)
-    build_log = res.stdout + res.stderr
-    return so
+    nvcc = _nvcc()
+    procs = {
+        name: (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", f"{so}.{os.getpid()}.tmp",
+             _SOURCES[name]],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), so)
+        for name, so in todo.items()
+    }
+    logs, errors = [], []
+    for name, (proc, so) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{name} (exit {proc.returncode}):\n{err[-4000:]}")
+            continue
+        os.replace(f"{so}.{os.getpid()}.tmp", so)
+        logs.append(out + err)
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+    build_log = "".join(logs)
+    return paths
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
+def _load(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        lib = ctypes.CDLL(build()[name])
         u64, u32 = ctypes.c_uint64, ctypes.c_uint32
         i32, ptr = ctypes.c_int, ctypes.c_void_p
         keys = [u32, u32, u32, ptr]  # seed_lo, seed_hi, epoch, seeds
-        lib.psds_window_order_ids.argtypes = [
-            ptr, u64, u32, *keys, i32, i32, ptr,
-        ]
-        general = [ptr, u64, u32, u32, u64, u32, *keys, i32, i32, i32, i32,
-                   ptr]
-        amortized = [ptr, ptr, u64, u32, u32, u64, u32, *keys, i32, i32, ptr]
-        lib.psds_index_general.argtypes = general
-        lib.psds_index_general_wide.argtypes = general
-        lib.psds_index_amortized.argtypes = amortized
-        lib.psds_index_amortized_wide.argtypes = amortized
-        for fn in (lib.psds_window_order_ids, lib.psds_index_general,
+        if name == "index":
+            fns = (lib.psds_window_order_ids, lib.psds_index_general,
                    lib.psds_index_general_wide, lib.psds_index_amortized,
-                   lib.psds_index_amortized_wide):
+                   lib.psds_index_amortized_wide)
+            lib.psds_window_order_ids.argtypes = [
+                ptr, u64, u32, *keys, i32, i32, ptr,
+            ]
+            general = [ptr, u64, u32, u32, u64, u32, *keys, i32, i32, i32,
+                       i32, ptr]
+            amortized = [ptr, ptr, u64, u32, u32, u64, u32, *keys, i32, i32,
+                         ptr]
+            lib.psds_index_general.argtypes = general
+            lib.psds_index_general_wide.argtypes = general
+            lib.psds_index_amortized.argtypes = amortized
+            lib.psds_index_amortized_wide.argtypes = amortized
+        else:
+            fns = (lib.psds_mixture_source_keys, lib.psds_mixture_fused)
+            lib.psds_mixture_source_keys.argtypes = [ptr, ptr, i32, i32,
+                                                     *keys, ptr]
+            lib.psds_mixture_fused.argtypes = [
+                ptr, ptr, u64, u64, u64, i32, u32, i32, ptr, ptr, ptr, ptr,
+                i32, i32, i32, i32, i32, i32, ptr,
+            ]
+        for fn in fns:
             fn.restype = i32
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _check(name: str, rc: int) -> None:
@@ -308,7 +345,7 @@ def window_order_ids(n: int, window: int, seed, epoch, *,
     _check_kernel_args(n, window, 1, rounds, core.is_wide(n))
     if n // window < 1:
         raise ValueError(f"window {window} > n {n}: no full window to order")
-    lib = _load()
+    lib = _load("index")
     ku = torch.empty(n // window, dtype=torch.int32, device=device)
     lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, ku.device)
     stream = torch.cuda.current_stream(ku.device).cuda_stream
@@ -341,7 +378,7 @@ def _general(wide: bool, n: int, window: int, seed, epoch, rank: int,
     if not 0 <= rank < world:
         raise ValueError(f"rank must be in [0, {world}), got {rank}")
     num_samples, _ = core.shard_sizes(n, world, drop_last)
-    lib = _load()
+    lib = _load("index")
     out = torch.empty(num_samples, dtype=core.out_dtype(n), device=device)
     lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -414,7 +451,7 @@ def _amortized(wide: bool, ku: torch.Tensor, n: int, window: int, seed,
         raise ValueError("ku must be a contiguous int32 tensor")
     if not 0 <= rank < world:
         raise ValueError(f"rank must be in [0, {world}), got {rank}")
-    lib = _load()
+    lib = _load("index")
     out = torch.empty(num_samples, dtype=core.out_dtype(n), device=ku.device)
     lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, ku.device)
     stream = torch.cuda.current_stream(ku.device).cuda_stream
@@ -451,3 +488,218 @@ def index_amortized_wide(ku: torch.Tensor, n: int, window: int, seed, epoch,
     return _amortized(True, ku, n, window, seed, epoch, rank, world,
                       drop_last=drop_last, order_windows=order_windows,
                       rounds=rounds, triple=triple)
+
+
+# ---------------------------------------------------------------- mixture
+#: cached device tables of a mixture spec: (spec.key(), device) -> tensors
+_mixture_tables: dict = {}
+_MIXTURE_TABLES_CAP = 16
+
+
+def _u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as the int32 tensor of their bits."""
+    return torch.where(x > core.INT32_MAX, x - (1 << 32), x).to(torch.int32)
+
+
+def _source_table(spec) -> np.ndarray:
+    """uint32 [S, 8] rows of the mixture kernels: n, W, nw, tail, k,
+    body = nw*W, base lo, base hi."""
+    n = np.asarray(spec.sources, dtype=np.uint64)
+    w = np.asarray(spec.windows, dtype=np.uint64)
+    nw = n // w
+    base = np.asarray(spec.bases, dtype=np.uint64)
+    cols = [n, w, nw, n - nw * w, np.asarray(spec.quotas, dtype=np.uint64),
+            nw * w, base & 0xFFFFFFFF, base >> np.uint64(32)]
+    return np.stack(cols, axis=1).astype(np.uint32)
+
+
+def mixture_tables(spec, device) -> tuple:
+    """``(pattern, prefix, src)`` of ``spec`` as int32 tensors on
+    ``device``, built once per ``(spec.key(), device)`` and cached: the
+    pattern [B], the prefix counts [B*S] and the source table [S*8] (the
+    uint32 bits of ``_source_table``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (spec.key(), str(device))
+    tabs = _mixture_tables.get(key)
+    if tabs is None:
+        host = (np.asarray(spec.pattern, dtype=np.int32),
+                spec.prefix.astype(np.int32).reshape(-1),
+                _source_table(spec).view(np.int32).reshape(-1))
+        tabs = tuple(torch.from_numpy(np.array(a)).to(device) for a in host)
+        if len(_mixture_tables) >= _MIXTURE_TABLES_CAP:
+            _mixture_tables.pop(next(iter(_mixture_tables)))
+        _mixture_tables[key] = tabs
+    return tabs
+
+
+def mixture_key_words(spec, rounds: int) -> int:
+    """Length of the keys buffer: rk, the epoch, and per source its seed
+    key and ``3 * rounds`` pairing constants."""
+    return 2 + spec.num_sources * (1 + 3 * int(rounds))
+
+
+def mixture_source_keys_ref(spec, seed, epoch, *,
+                            rounds: int = core.DEFAULT_ROUNDS,
+                            device=None) -> torch.Tensor:
+    """The keys buffer (int32 bits of uint32 words) by torch ops: ``[rk,
+    epoch]``, then per source ``[seed_key, K_outer[rounds],
+    K_inner[rounds], K_tail[rounds]]`` with ``K_r = mix32(pair ^
+    r*GOLDEN) % m`` (0 where ``m <= 1``) from the pass-free per-source
+    epoch key."""
+    tab = mixture._source_tables(spec, device)
+    lo_s, hi_s, ek0 = mixture._source_keys(spec, seed, epoch, device)
+    sk = core.mix32(core.mix32(lo_s ^ core._GOLDEN)
+                    ^ core.mix32(hi_s ^ core._C_SEED_HI))
+    rg = (torch.arange(rounds, dtype=torch.int64, device=device)
+          * core._GOLDEN) & core._M32
+
+    def schedule(pair, m):
+        k = core.mix32(pair[:, None] ^ rg[None, :]) % m.clamp(min=1)[:, None]
+        return torch.where(m[:, None] > 1, k, torch.zeros_like(k))
+
+    rows = torch.cat([
+        sk[:, None], schedule(core.outer_key(ek0), tab["nw"]),
+        schedule(core.inner_pair_key(ek0), tab["w"]),
+        schedule(core.tail_key(ek0), tab["tail"]),
+    ], dim=1).reshape(-1)
+    head = torch.stack([
+        torch.as_tensor(v, dtype=torch.int64, device=device)
+        for v in (mixture.rotation_key(seed, epoch),
+                  core.as_u32_scalar(epoch))
+    ])
+    return _u32_bits(torch.cat([head, rows]))
+
+
+def mixture_source_keys(spec, seed, epoch, *,
+                        rounds: int = core.DEFAULT_ROUNDS, device="cuda",
+                        triple=None) -> torch.Tensor:
+    """The keys buffer of one regen (``mixture_source_keys_ref``):
+    int32[2 + S*(1 + 3*rounds)] on ``device``, from the scalars or from
+    the seed triple in device memory."""
+    seed_p, epoch_p = _plain_keys(seed, epoch, triple)
+    if device_kind(device) == "cpu":
+        return mixture_source_keys_ref(spec, seed_p, epoch_p, rounds=rounds,
+                                       device=device)
+    if not 0 <= rounds <= MAX_ROUNDS:
+        raise ValueError(f"rounds must be in [0, {MAX_ROUNDS}], got {rounds}")
+    lib = _load("mixture")
+    _pattern, _prefix, src = mixture_tables(spec, device)
+    keys = torch.empty(mixture_key_words(spec, rounds), dtype=torch.int32,
+                       device=src.device)
+    lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    launches["mixture_source_keys"] += 1
+    _check("mixture_source_keys", lib.psds_mixture_source_keys(
+        keys.data_ptr(), src.data_ptr(), spec.num_sources, rounds, lo, hi,
+        ep, seeds, stream,
+    ))
+    return keys
+
+
+def _check_lane_source(rank, world, num_samples, positions) -> None:
+    """A ``mixture_fused`` call takes its lanes from ``positions`` or from
+    ``(rank, world, num_samples)``: exactly one of the two."""
+    if positions is not None:
+        if rank is not None or world is not None or num_samples is not None:
+            raise ValueError("pass positions, or rank, world and "
+                             "num_samples, not both")
+    elif rank is None or world is None or num_samples is None:
+        raise ValueError("pass positions, or rank, world and num_samples")
+
+
+def mixture_fused_ref(keys: torch.Tensor, spec, seed, epoch, *, rank=None,
+                      world=None, num_samples=None, partition="strided",
+                      positions=None, wide_pos: bool, shuffle: bool = True,
+                      order_windows: bool = True,
+                      rounds: int = core.DEFAULT_ROUNDS) -> torch.Tensor:
+    """The mixture stream at the lanes' positions on ``keys``' device: the
+    fused per-lane evaluator of ``ops/mixture.py`` (the masked loop for an
+    unshuffled stream, whose law is the identity per source)."""
+    _check_lane_source(rank, world, num_samples, positions)
+    if positions is None:
+        p = mixture.rank_stream_positions(spec, rank, world, num_samples,
+                                          partition, wide_pos, keys.device)
+    else:
+        p = torch.as_tensor(positions).to(keys.device, torch.int64)
+    return mixture.mixture_stream_at_generic(
+        p, spec, seed, epoch, shuffle=shuffle,
+        order_windows=order_windows, rounds=rounds, big_positions=wide_pos,
+        amortize=False,
+    )
+
+
+def mixture_fused(keys: torch.Tensor, spec, seed, epoch, *, rank=None,
+                  world=None, num_samples=None, partition="strided",
+                  positions=None, wide_pos: bool, shuffle: bool = True,
+                  order_windows: bool = True,
+                  rounds: int = core.DEFAULT_ROUNDS,
+                  triple=None) -> torch.Tensor:
+    """Mixture ids on ``keys``' device, one lane per position: the rank's
+    own positions (``rank``, ``world``, ``num_samples``, ``partition``) or
+    an int64 ``positions`` tensor on that device.  ``keys`` is this
+    regen's ``mixture_source_keys`` buffer; ``wide_pos`` selects uint64
+    position math.  int32 ids, or int64 when the sources total 2^31 or
+    more.  Takes only mixtures whose sources are all below 2^31."""
+    seed_p, epoch_p = _plain_keys(seed, epoch, triple)
+    if device_kind(keys.device) == "cpu":
+        return mixture_fused_ref(
+            keys, spec, seed_p, epoch_p, rank=rank, world=world,
+            num_samples=num_samples, partition=partition,
+            positions=positions, wide_pos=wide_pos, shuffle=shuffle,
+            order_windows=order_windows, rounds=rounds)
+    if not spec.fused_applies():
+        raise ValueError(
+            "the mixture kernel takes sources below 2^31; larger sources "
+            "take the masked evaluator (fused=False)"
+        )
+    if not 0 <= rounds <= MAX_ROUNDS:
+        raise ValueError(f"rounds must be in [0, {MAX_ROUNDS}], got {rounds}")
+    if spec.block > core.INT32_MAX:
+        raise ValueError(f"block must be < 2^31, got {spec.block}")
+    if (keys.dtype != torch.int32 or not keys.is_contiguous()
+            or keys.numel() != mixture_key_words(spec, rounds)):
+        raise ValueError(
+            "keys must be the contiguous int32 buffer of "
+            "mixture_source_keys for this spec and round count"
+        )
+    if partition not in ("strided", "blocked"):
+        raise ValueError(
+            f"partition must be 'strided' or 'blocked', got {partition!r}"
+        )
+    _check_lane_source(rank, world, num_samples, positions)
+    if positions is not None:
+        if not (isinstance(positions, torch.Tensor)
+                and positions.dtype == torch.int64
+                and positions.device == keys.device
+                and positions.is_contiguous() and positions.dim() == 1):
+            raise ValueError(
+                f"positions must be a contiguous 1-D int64 tensor on "
+                f"{keys.device}"
+            )
+        lanes, rank, world = positions.numel(), 0, 1
+    else:
+        if not 0 <= rank < world:
+            raise ValueError(f"rank must be in [0, {world}), got {rank}")
+        lanes = int(num_samples)
+    if not wide_pos and lanes > core.INT32_MAX:
+        raise ValueError(
+            f"{lanes} lanes need uint64 positions (wide_pos=True)"
+        )
+    out = torch.empty(lanes, dtype=spec.out_dtype(), device=keys.device)
+    if lanes == 0:
+        return out
+    lib = _load("mixture")
+    pattern, prefix, src = mixture_tables(spec, keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    launches["mixture_fused"] += 1
+    _check("mixture_fused", lib.psds_mixture_fused(
+        out.data_ptr(), None if positions is None else positions.data_ptr(),
+        lanes, rank, world, int(partition == "strided"), spec.block,
+        spec.num_sources, pattern.data_ptr(), prefix.data_ptr(),
+        src.data_ptr(), keys.data_ptr(), rounds, int(bool(shuffle)),
+        int(bool(order_windows)), int(spec.rotated(shuffle)),
+        int(bool(wide_pos)), int(spec.out_dtype() == torch.int64), stream,
+    ))
+    return out

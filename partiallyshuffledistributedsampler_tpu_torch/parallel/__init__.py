@@ -1,9 +1,5 @@
-"""Seed agreement over a process group and per-rank shard regen.
-
-The JAX package's ``parallel/`` minus its mixture functions
-(``sharded_mixture_indices``, ``make_mixture_regen_fn``,
-``sharded_mixture_elastic_indices``), which wait for the mixture port.
-"""
+"""Seed agreement over a process group and per-rank shard regen, for the
+single-source stream and the weighted mixture (SPEC.md §8)."""
 
 from .mesh import (  # noqa: F401
     data_mesh,
@@ -13,8 +9,11 @@ from .mesh import (  # noqa: F401
 )
 from .sharded import (  # noqa: F401
     make_elastic_regen_fn,
+    make_mixture_regen_fn,
     make_regen_fn,
     make_seed_triple,
     sharded_elastic_indices,
     sharded_epoch_indices,
+    sharded_mixture_elastic_indices,
+    sharded_mixture_indices,
 )

@@ -15,6 +15,13 @@ it there (NCCL) and the index kernels read it from there
 the regen waits for the host.  The elastic remainder law is plain torch
 ops, its keys derived from the agreed tensor with the law's ``mix32`` on
 0-d tensors.
+
+The mixture (SPEC.md §8) rides the same agreement: the agreed triple feeds
+the mixture kernels (``mixture_source_keys`` XORs each source's seed
+offset into the agreed halves on the card, the bitwise split of
+``source_seed_folded``), and the remainder positions of an elastic
+mixture epoch are built with torch ops on the card before the kernel
+evaluates them.
 """
 
 from __future__ import annotations
@@ -29,6 +36,12 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..ops import core
 from ..ops.cuda import elastic_indices_cuda, epoch_indices_cuda
 from ..ops.cuda_kernel import device_kind
+from ..ops.mixture import (
+    _elastic_plan,
+    mixture_elastic_indices_cuda,
+    mixture_epoch_indices_cuda,
+    mixture_epoch_sizes,
+)
 from .mesh import data_mesh, identity_from_mesh
 
 
@@ -208,3 +221,105 @@ def sharded_elastic_indices(
                            device=mesh.device_type)
     return fn(make_seed_triple(seed, epoch, mesh=mesh,
                                local_seeds=local_seeds))
+
+
+def make_mixture_regen_fn(
+    spec,
+    *,
+    mesh: Optional[DeviceMesh] = None,
+    axis: str = "data",
+    epoch_samples=None,
+    shuffle: bool = True,
+    drop_last: bool = False,
+    order_windows: bool = True,
+    partition: str = "strided",
+    rounds: int = core.DEFAULT_ROUNDS,
+):
+    """``(fn, num_samples)`` of the mixture stream (SPEC.md §8):
+    ``fn(triple)`` agrees on rank 0's triple over ``mesh``'s ``axis``,
+    then returns this process's row, its rank's mixture-epoch ids,
+    generated by the mixture kernels from the agreed triple in device
+    memory (the plain law on a CPU mesh).  Warns, as the JAX package does,
+    when a strided world starves a source of a position-static pattern."""
+    mesh, world, rank = _mesh_identity(mesh, axis)
+    spec.check_world_balance(world, str(partition), bool(shuffle))
+    _t, num_samples, _total = mixture_epoch_sizes(spec, epoch_samples, world,
+                                                  drop_last)
+    law = dict(epoch_samples=epoch_samples, shuffle=shuffle,
+               drop_last=drop_last, order_windows=order_windows,
+               partition=partition, rounds=rounds)
+
+    def fn(triple: torch.Tensor) -> torch.Tensor:
+        agreed = _agree(triple, mesh, axis)
+        return mixture_epoch_indices_cuda(spec, None, None, rank, world,
+                                          device=mesh.device_type,
+                                          triple=agreed, **law)
+
+    return fn, num_samples
+
+
+def sharded_mixture_indices(
+    spec,
+    seed,
+    epoch,
+    *,
+    mesh: Optional[DeviceMesh] = None,
+    axis: str = "data",
+    epoch_samples=None,
+    shuffle: bool = True,
+    drop_last: bool = False,
+    order_windows: bool = True,
+    partition: str = "strided",
+    rounds: int = core.DEFAULT_ROUNDS,
+    local_seeds=None,
+) -> torch.Tensor:
+    """This rank's mixture-epoch ids under rank 0's seed: equal to
+    ``mixture_epoch_indices_cuda(spec, seed0, epoch0, rank, world)``
+    where ``(seed0, epoch0)`` are rank 0's (``local_seeds`` as in
+    :func:`sharded_epoch_indices`)."""
+    mesh = mesh if mesh is not None else data_mesh(axis_name=axis)
+    fn, _ = make_mixture_regen_fn(
+        spec, mesh=mesh, axis=axis, epoch_samples=epoch_samples,
+        shuffle=shuffle, drop_last=drop_last, order_windows=order_windows,
+        partition=partition, rounds=rounds,
+    )
+    return fn(make_seed_triple(seed, epoch, mesh=mesh,
+                               local_seeds=local_seeds))
+
+
+def sharded_mixture_elastic_indices(
+    spec,
+    seed,
+    epoch,
+    layers,
+    *,
+    mesh: Optional[DeviceMesh] = None,
+    axis: str = "data",
+    epoch_samples=None,
+    shuffle: bool = True,
+    drop_last: bool = False,
+    order_windows: bool = True,
+    partition: str = "strided",
+    rounds: int = core.DEFAULT_ROUNDS,
+    local_seeds=None,
+) -> torch.Tensor:
+    """This rank's remainder-epoch mixture ids under rank 0's seed
+    (SPEC.md §6 over §8), equal to the mixture sampler's
+    ``reshard_from_state_dict`` stream for the same layers; an empty
+    tensor of the id dtype when nothing remains."""
+    mesh, world, rank = _mesh_identity(mesh, axis)
+    spec.check_world_balance(world, str(partition), bool(shuffle))
+    _chain, _rem, num_samples, _bt, _wide = _elastic_plan(
+        spec, layers, world, epoch_samples, drop_last
+    )
+    if num_samples == 0:
+        return torch.empty(0, dtype=spec.out_dtype(),
+                           device=mesh.device_type)
+    agreed = _agree(make_seed_triple(seed, epoch, mesh=mesh,
+                                     local_seeds=local_seeds), mesh, axis)
+    return mixture_elastic_indices_cuda(
+        spec, None, None, rank, world, layers, epoch_samples=epoch_samples,
+        shuffle=shuffle, drop_last=drop_last, order_windows=order_windows,
+        partition=partition, rounds=rounds, device=mesh.device_type,
+        triple=agreed,
+    )

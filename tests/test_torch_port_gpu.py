@@ -198,3 +198,132 @@ def test_num_samples_past_2_32_lanes_spot_checks():
     assert torch.equal(out[lanes], want)
     del out
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- mixture
+from partiallyshuffledistributedsampler_tpu.ops import mixture as jmix  # noqa: E402
+from partiallyshuffledistributedsampler_tpu_torch import (  # noqa: E402
+    MixtureEpochIterator,
+    MixtureSpec,
+    PartialShuffleMixtureSampler,
+    mixture_elastic_indices_cuda,
+    mixture_epoch_indices_cuda,
+    mixture_stream_at_cuda,
+)
+from partiallyshuffledistributedsampler_tpu_torch.ops import (  # noqa: E402
+    mixture as pmix,
+)
+
+SIZES, WEIGHTS = [1000, 500, 2500], [5, 1, 4]
+M3 = ([1_750_000_000] * 4 + [2_000_000_000, 1_000_000_000],
+      [175] * 4 + [200, 100])
+#: (sources, weights, spec kw, law kw, world, rank) for each (position,
+#: id) type pair of the kernel: uint32/int32, uint64/int32, uint64/int64,
+#: uint32/int64
+MIX_CASES = [
+    (SIZES, WEIGHTS, dict(windows=64, block=100), {}, 3, 2),
+    (SIZES, WEIGHTS, dict(windows=64, block=100, pattern_version=1),
+     dict(partition="blocked", order_windows=False), 3, 1),
+    (SIZES, WEIGHTS, dict(windows=64, block=100), dict(shuffle=False), 2, 1),
+    ([700_000, 200_000, 100_000], [70, 20, 10], dict(windows=8192),
+     dict(epoch_samples=2**31 + 5000), 2**20, 777_777),
+    (*M3, dict(windows=8192), {}, 2**22, 3_000_001),
+    (*M3, dict(windows=8192), dict(epoch_samples=1_000_000), 4, 3),
+    (SIZES, WEIGHTS, dict(windows=64, block=100), dict(rounds=64), 2, 0),
+]
+
+
+@pytest.mark.parametrize("sources,weights,skw,lkw,world,rank", MIX_CASES)
+def test_mixture_kernels_match_numpy_and_plain(sources, weights, skw, lkw,
+                                               world, rank):
+    js = jmix.MixtureSpec(sources, weights, **skw)
+    ps = MixtureSpec(sources, weights, **skw)
+    ck.reset_launches()
+    got = mixture_epoch_indices_cuda(ps, 42, 3, rank, world, **lkw)
+    assert ck.launches["mixture_fused"] == 1
+    assert ck.launches["mixture_source_keys"] == 1
+    _t, ns, total = pmix.mixture_epoch_sizes(ps, lkw.get("epoch_samples"),
+                                             world, False)
+    pos = (np.arange(ns, dtype=np.int64) * world + rank
+           if lkw.get("partition", "strided") == "strided"
+           else rank * ns + np.arange(ns, dtype=np.int64))
+    want = jmix.mixture_stream_at_np(
+        pos, js, 42, 3, **{k: v for k, v in lkw.items()
+                           if k in ("shuffle", "order_windows", "rounds")})
+    assert got.is_cuda and got.dtype == ps.out_dtype()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    rounds = lkw.get("rounds", core.DEFAULT_ROUNDS)
+    keys = ck.mixture_source_keys(ps, 42, 3, rounds=rounds)
+    assert torch.equal(keys, ck.mixture_source_keys_ref(ps, 42, 3,
+                                                        rounds=rounds,
+                                                        device="cuda"))
+    kw = dict(rank=rank, world=world, num_samples=ns,
+              partition=lkw.get("partition", "strided"),
+              wide_pos=total + ps.block > core.INT32_MAX,
+              shuffle=lkw.get("shuffle", True),
+              order_windows=lkw.get("order_windows", True), rounds=rounds)
+    assert torch.equal(ck.mixture_fused(keys, ps, 42, 3, **kw),
+                       ck.mixture_fused_ref(keys, ps, 42, 3, **kw))
+
+
+def test_mixture_goldens_on_gpu():
+    for pv, head in ((1, [394, 2255, 425, 2252, 411, 1363, 2260, 402]),
+                     (2, [2255, 394, 2252, 425, 1363, 2260, 411, 2262])):
+        spec = MixtureSpec(SIZES, WEIGHTS, windows=64, block=100,
+                           pattern_version=pv)
+        ids = mixture_epoch_indices_cuda(spec, 7, 3, 0, 1)
+        assert ids[:8].tolist() == head and int(ids.long().sum()) == 5793243
+
+
+def test_mixture_triple_and_300_sources():
+    seed, epoch = (1 << 40) + 0xFFFFFFF7, 0xFFFFFFF0
+    t = _triple(seed, epoch)
+    spec = MixtureSpec([2000 + 17 * i for i in range(300)],
+                       [1 + i % 13 for i in range(300)], windows=64,
+                       block=4096)
+    for fused in (None, False):
+        want = mixture_epoch_indices_cuda(spec, seed, epoch, 5, 8,
+                                          fused=fused)
+        assert torch.equal(mixture_epoch_indices_cuda(
+            spec, None, None, 5, 8, triple=t, fused=fused), want)
+    js = jmix.MixtureSpec([2000 + 17 * i for i in range(300)],
+                          [1 + i % 13 for i in range(300)], windows=64,
+                          block=4096)
+    np.testing.assert_array_equal(
+        want.cpu().numpy(),
+        jmix.mixture_epoch_indices_np(js, seed, epoch, 5, 8))
+
+
+def test_mixture_stream_at_and_elastic_on_gpu():
+    js = jmix.MixtureSpec(SIZES, WEIGHTS, windows=64, block=100)
+    ps = MixtureSpec(SIZES, WEIGHTS, windows=64, block=100)
+    pos = np.random.default_rng(0).integers(0, 10**7, 5000)
+    ck.reset_launches()
+    got = mixture_stream_at_cuda(pos, ps, 5, 1)
+    assert ck.launches["mixture_fused"] == 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  jmix.mixture_stream_at_np(pos, js, 5, 1))
+    for layers in ([(3, 400)], [(4, 100), (3, 7)]):
+        for rank in range(2):
+            got = mixture_elastic_indices_cuda(ps, 5, 1, rank, 2, layers)
+            np.testing.assert_array_equal(
+                got.cpu().numpy(),
+                jmix.mixture_elastic_indices_np(js, 5, 1, rank, 2, layers))
+
+
+def test_mixture_sampler_iterator_and_runner_launches():
+    js = jmix.MixtureSpec(SIZES, WEIGHTS, windows=64, block=100)
+    s = PartialShuffleMixtureSampler(SIZES, WEIGHTS, num_replicas=3, rank=2,
+                                     windows=64, block=100)
+    s.set_epoch(4)
+    assert list(s) == jmix.mixture_epoch_indices_np(js, 0, 4, 2, 3).tolist()
+    it = MixtureEpochIterator(MixtureSpec(SIZES, WEIGHTS, windows=64,
+                                          block=100), 64, rank=1, world=2)
+    ck.reset_launches()
+    total = it.run_epochs(2, 3, lambda c, b: c + b.sum(),
+                          torch.zeros((), dtype=torch.int64, device="cuda"))
+    assert ck.launches["mixture_fused"] == 3  # one kernel regen per epoch
+    assert ck.launches["index_amortized"] == ck.launches["index_general"] == 0
+    whole = it.steps_per_epoch * 64
+    assert int(total) == sum(int(jmix.mixture_epoch_indices_np(
+        js, 0, e, 1, 2)[:whole].sum()) for e in (2, 3, 4))

@@ -179,7 +179,8 @@ def test_cpu_routing_launches_no_kernel():
                             amortize=False)
     assert ck.launches == {"window_order_ids": 0, "index_general": 0,
                            "index_amortized": 0, "index_general_wide": 0,
-                           "index_amortized_wide": 0}
+                           "index_amortized_wide": 0,
+                           "mixture_source_keys": 0, "mixture_fused": 0}
 
 
 # ------------------------------------------------------------- refusals

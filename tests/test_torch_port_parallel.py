@@ -16,12 +16,18 @@ import pytest
 import torch
 
 from partiallyshuffledistributedsampler_tpu.ops.cpu import epoch_indices_np
+from partiallyshuffledistributedsampler_tpu.ops.mixture import (
+    MixtureSpec as JaxMixtureSpec,
+    mixture_epoch_indices_np,
+)
 from partiallyshuffledistributedsampler_tpu.parallel import (
     data_mesh as jax_data_mesh,
     sharded_elastic_indices as jax_sharded_elastic_indices,
     sharded_epoch_indices as jax_sharded_epoch_indices,
+    sharded_mixture_elastic_indices as jax_sharded_mixture_elastic_indices,
+    sharded_mixture_indices as jax_sharded_mixture_indices,
 )
-from partiallyshuffledistributedsampler_tpu_torch import parallel
+from partiallyshuffledistributedsampler_tpu_torch import MixtureSpec, parallel
 from partiallyshuffledistributedsampler_tpu_torch.ops import (
     CudaUnavailableError,
     cuda,
@@ -44,6 +50,24 @@ ELASTIC_CONFIGS = [
     (4000, 64, [(2, 900)], {"partition": "blocked"}),
     (1000, 64, [(2, 500)], {}),
 ]
+#: mixtures (SPEC.md §8): (sources, weights, spec kwargs, law kwargs): the
+#: v2 rotated stream, a v1 blocked one with epoch_samples, an unshuffled one
+MIXTURE_SPEC = ([1000, 500, 2500], [5, 1, 4], {"windows": 64, "block": 100})
+MIXTURE_CONFIGS = [
+    (*MIXTURE_SPEC, {}),
+    ([1000, 500, 2500], [5, 1, 4],
+     {"windows": 64, "block": 100, "pattern_version": 1},
+     {"partition": "blocked", "epoch_samples": 3000}),
+    ([700, 37, 300, 64], [7, 1, 3, 2],
+     {"windows": [64, 8, 100, 64], "block": 64}, {"shuffle": False}),
+]
+#: (layers, law kwargs) of the mixture remainders over MIXTURE_SPEC: one
+#: reshard, a blocked cascade, a fully consumed epoch
+MIXTURE_ELASTIC = [
+    ([(3, 400)], {}),
+    ([(4, 100), (3, 7)], {"partition": "blocked"}),
+    ([(2, 2000)], {}),
+]
 
 _WORKER = textwrap.dedent("""
     import sys
@@ -54,11 +78,16 @@ _WORKER = textwrap.dedent("""
                               int(sys.argv[3]), sys.argv[4])
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
-    from partiallyshuffledistributedsampler_tpu_torch import parallel
+    from partiallyshuffledistributedsampler_tpu_torch import (
+        MixtureSpec,
+        parallel,
+    )
 
     EPOCH_CONFIGS, ELASTIC_CONFIGS, SEED, EPOCH, LOCAL = (
         eval(sys.argv[5]), eval(sys.argv[6]), int(sys.argv[7]),
         int(sys.argv[8]), eval(sys.argv[9]))
+    MIXTURE_SPEC, MIXTURE_CONFIGS, MIXTURE_ELASTIC = (
+        eval(sys.argv[10]), eval(sys.argv[11]), eval(sys.argv[12]))
     parallel.ensure_distributed()  # a group exists: a no-op
     mesh = parallel.data_mesh(device="cpu")
     assert parallel.identity_from_mesh(mesh) == (world, rank)
@@ -78,6 +107,22 @@ _WORKER = textwrap.dedent("""
     for i, (n, w, layers, kw) in enumerate(ELASTIC_CONFIGS):
         rows[f"elastic{i}"] = parallel.sharded_elastic_indices(
             n, w, None, None, layers, mesh=mesh, local_seeds=LOCAL[rank],
+            **kw).numpy()
+    for i, (sizes, weights, skw, kw) in enumerate(MIXTURE_CONFIGS):
+        spec = MixtureSpec(sizes, weights, **skw)
+        rows[f"mix{i}"] = parallel.sharded_mixture_indices(
+            spec, SEED, EPOCH, mesh=mesh, **kw).numpy()
+        rows[f"mix{i}_local"] = parallel.sharded_mixture_indices(
+            spec, None, None, mesh=mesh, local_seeds=LOCAL[rank],
+            **kw).numpy()
+    spec = MixtureSpec(MIXTURE_SPEC[0], MIXTURE_SPEC[1], **MIXTURE_SPEC[2])
+    fn, ns = parallel.make_mixture_regen_fn(spec, mesh=mesh)
+    row = fn(parallel.make_seed_triple(SEED, 1, mesh=mesh))
+    assert row.shape == (ns,)
+    rows["mixregen"] = row.numpy()
+    for i, (layers, kw) in enumerate(MIXTURE_ELASTIC):
+        rows[f"mixel{i}"] = parallel.sharded_mixture_elastic_indices(
+            spec, None, None, layers, mesh=mesh, local_seeds=LOCAL[rank],
             **kw).numpy()
     np.savez(f"{out}/rank{rank}.npz", **rows)
     dist.destroy_process_group()
@@ -109,7 +154,8 @@ def _run_workers(world: int, out: pathlib.Path, timeout: float) -> dict:
         subprocess.Popen(
             [sys.executable, str(script), str(r), str(world), str(port),
              str(out), repr(EPOCH_CONFIGS), repr(ELASTIC_CONFIGS), str(SEED),
-             str(EPOCH), repr(local)],
+             str(EPOCH), repr(local), repr(MIXTURE_SPEC),
+             repr(MIXTURE_CONFIGS), repr(MIXTURE_ELASTIC)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             cwd=str(ROOT), env=env,
         )
@@ -158,6 +204,26 @@ def test_gloo_rows_match_the_jax_mesh(world, tmp_path):
             got = rows[r][f"elastic{i}"]
             assert got.dtype == want.dtype
             np.testing.assert_array_equal(got, want[r])
+    # the mixture rows (SPEC.md §8), rank 0's seed winning as above
+    for i, (sizes, weights, skw, kw) in enumerate(MIXTURE_CONFIGS):
+        spec = JaxMixtureSpec(sizes, weights, **skw)
+        want = np.asarray(jax_sharded_mixture_indices(mesh, spec, SEED,
+                                                      EPOCH, **kw))
+        for r in range(world):
+            np.testing.assert_array_equal(rows[r][f"mix{i}"], want[r])
+            np.testing.assert_array_equal(rows[r][f"mix{i}_local"], want[r])
+    spec = JaxMixtureSpec(MIXTURE_SPEC[0], MIXTURE_SPEC[1], **MIXTURE_SPEC[2])
+    for r in range(world):
+        np.testing.assert_array_equal(
+            rows[r]["mixregen"],
+            mixture_epoch_indices_np(spec, SEED, 1, r, world))
+    for i, (layers, kw) in enumerate(MIXTURE_ELASTIC):
+        want = np.asarray(jax_sharded_mixture_elastic_indices(
+            mesh, spec, None, None, layers, local_seeds=local, **kw))
+        for r in range(world):
+            got = rows[r][f"mixel{i}"]
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want[r])
 
 
 def test_parallel_entries_default_to_the_card(monkeypatch):
@@ -173,6 +239,13 @@ def test_parallel_entries_default_to_the_card(monkeypatch):
         parallel.make_regen_fn(1000, 64)
     with pytest.raises(CudaUnavailableError):
         parallel.sharded_elastic_indices(1000, 64, 0, 0, [(2, 10)])
+    spec = MixtureSpec(*MIXTURE_SPEC[:2], **MIXTURE_SPEC[2])
+    with pytest.raises(CudaUnavailableError):
+        parallel.sharded_mixture_indices(spec, 0, 0)
+    with pytest.raises(CudaUnavailableError):
+        parallel.make_mixture_regen_fn(spec)
+    with pytest.raises(CudaUnavailableError):
+        parallel.sharded_mixture_elastic_indices(spec, 0, 0, [(2, 10)])
     for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(k, raising=False)
     parallel.ensure_distributed()  # no environment: a no-op
