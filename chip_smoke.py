@@ -5,10 +5,11 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``csrc/index_kernels.cu`` and
-``csrc/mixture_kernels.cu`` (one nvcc each, run together), checks the
-frozen goldens on the card, holds each kernel bit-exact against its plain
-PyTorch version at the shapes of the main paths, drives each main path
+It builds the CUDA kernels from ``csrc/index_kernels.cu``,
+``csrc/mixture_kernels.cu`` and ``csrc/shard_kernels.cu`` (one nvcc each,
+run together), checks the frozen goldens on the card, holds each kernel
+bit-exact against its plain PyTorch version at the shapes of the main
+paths, drives each main path
 through the entry points a user calls with the kernels' launch counters
 reset just before and read just after, and times every kernel beside its
 plain version and its bound.  Every failure exits non-zero.
@@ -38,6 +39,14 @@ plain version and its bound.  Every failure exits non-zero.
   ``sharded_mixture_elastic_indices`` over the NCCL group of one, and
   mixture rows in the two gloo processes; then the single-source
   ``run_epoch``/``run_epochs``.
+* Slice 4, shard-index mode (SPEC.md §7, BASELINE config 4: WebDataset
+  shards) and its two kernels (``csrc/shard_kernels.cu``): S1 is 100,000
+  shards of 1,000 samples at world 8 and 1, S2 100,000 log-normal sizes of
+  200..2000, S3 99,000 shards of 4..64 and 1,000 of 50,000..100,000, S4
+  400,000 shards of 10,000 (int64); full, windowed (64) and sequential
+  in-shard orders.  The main path: ``PartialShuffleShardSampler`` at S1 /
+  world 8 under a real ``DataLoader`` for two epochs, each rank's
+  ``device_epoch_indices`` beside it, then a reshard 8 -> 16.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -63,6 +72,10 @@ SLICE2 = ("window_order_ids", "index_amortized", "index_general_wide",
           "index_amortized_wide")
 #: the slice-3 kernels, and the index kernels its mixture path never runs
 SLICE3 = ("mixture_source_keys", "mixture_fused")
+#: the slice-4 kernels (shard-index mode)
+SLICE4 = ("shard_row_keys", "shard_expand")
+#: shards each old rank has consumed when its checkpoint reshards 8 -> 16
+SHARD_CONSUMED = 5000
 INDEX_KERNELS = ("window_order_ids", "index_general", "index_amortized",
                  "index_general_wide", "index_amortized_wide")
 #: M1: the 1B three-corpus anchor of bench.py / README (web, code, books)
@@ -117,8 +130,50 @@ BIJ_KEY_OPS = 14
 #: mix32, two xors) and pass-free epoch key (two mix32, two xors), the
 #: pairing key (mix32 + xor) and K_r (mix32, xor, multiply, compare, mod)
 KEY_WORD_OPS = 51
+#: slice 4, BASELINE config 4 (WebDataset shards, ViT-L/16): 100,000
+#: shards of 1,000 samples, the shard sampler's window 64 (S1); S2/S3
+#: have other size laws (shard_corpora); S4 is 400,000 x 10,000 (int64)
+SHARDS, SHARD_M, SHARD_W = 100_000, 1_000, 64
+S4_SHARDS, S4_M = 400_000, 10_000
+#: the expansion goldens of tests/test_shard_mode.py (sizes 5/0/7/3/4,
+#: ids [2, 0, 3], seed 3, epoch 1), per within_shard_shuffle
+SHARD_GOLDENS = {True: [10, 8, 11, 6, 7, 9, 5, 1, 2, 0, 3, 4, 13, 12, 14],
+                 2: [5, 6, 8, 7, 9, 10, 11, 0, 1, 3, 2, 4, 12, 13, 14]}
+#: shard_expand per lane besides its bijection, counted from
+#: csrc/shard_kernels.cu in the same way: the row and u (t / m and its
+#: multiply-subtract, 2), W = min(w, m) and its test (2), the body test
+#: (1), the window and in-window offset (2), the combine (1) and the
+#: offset add (1); a binary-search step (mixed sizes) adds 4 (the midpoint,
+#: the compare and two selects)
+SHARD_LANE_OPS = 9
+SEARCH_STEP_OPS = 4
+#: the tail bijection's key2 (mix32 + xor); the inner one is INNER_KEY_OPS
+TAIL_KEY_OPS = 7
+#: shard_row_keys per row: the carried fold (4), seed key (three mix32,
+#: three xors: 21), epoch key (two mix32, two xors: 14), pairing and tail
+#: keys (14), W and body (4); per pairing constant mix32, xor, multiply,
+#: compare, mod and select (11), two schedules of `rounds`
+ROW_BASE_OPS, ROW_KEY_OPS = 57, 11
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+
+
+def shard_corpora():
+    """The four shard-size tables of slice 4, from a numpy seed: S1
+    uniform; S2 log-normal sizes clipped to 200..2000 (BASELINE.md round
+    5's variable-length corpus); S3 99,000 shards of 4..64 and 1,000 of
+    50,000..100,000, shuffled in id order; S4 uniform, 4e9 samples."""
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    sz1 = np.full(SHARDS, SHARD_M, dtype=np.int64)
+    sz2 = np.clip(np.rint(rng.lognormal(np.log(600), 0.55, SHARDS)), 200,
+                 2000).astype(np.int64)
+    sz3 = np.concatenate([rng.integers(4, 65, 99_000),
+                         rng.integers(50_000, 100_001, 1_000)])
+    rng.shuffle(sz3)
+    sz4 = np.full(S4_SHARDS, S4_M, dtype=np.int64)
+    return sz1, sz2, sz3, sz4
 
 
 def fail(msg: str) -> None:
@@ -247,6 +302,10 @@ def main() -> None:
             core,
             cuda_kernel as ck,
             mixture as M,
+            shard as SH,
+        )
+        from partiallyshuffledistributedsampler_tpu_torch.sampler import (
+            shard_mode as SM,
         )
     except ImportError as exc:
         fail(f"the package is not importable here ({exc}); run from the "
@@ -550,6 +609,90 @@ def main() -> None:
          f"first, last, {near.numel()} in or near a source's tail window) "
          "against the plain random-access law")
     del out, got, want, masked, lanes, near
+    torch.cuda.empty_cache()
+
+    # ------------------------------- 3d: the shard kernels (§7, config 4)
+    sz1, sz2, sz3, sz4 = shard_corpora()
+    print(f"shard corpora: S1 {sz1.size} x {SHARD_M} = {int(sz1.sum())}; "
+          f"S2 {sz2.size} log-normal 200..2000, {np.unique(sz2).size} "
+          f"distinct sizes, {int(sz2.sum())} samples; S3 {sz3.size} "
+          f"heavy-tailed, "
+          f"{int(sz3.sum())} samples; S4 {sz4.size} x {int(sz4[0])} = "
+          f"{int(sz4.sum())} (int64)")
+
+    def shard_ids(num, world, rank, epoch=1):
+        """The rank's shard-id stream, from the index kernels."""
+        return pt.epoch_indices_cuda(num, SHARD_W, 0, epoch, rank, world)
+
+    def hold_shard(sizes, sids, wss, label, seed=0, epoch=1):
+        """Both shard kernels against their plain versions on the same
+        inputs; returns the kernels' expansion."""
+        tabs = SH.shard_tables(sizes, dev)
+        full, w = SH.shuffle_mode(wss)
+        rowtab, m_of = ck.shard_row_keys(sids, tabs, seed, epoch,
+                                         full=full, w=w, sizes_out=True)
+        rowtab_ref, m_ref = ck.shard_row_keys_ref(sids, tabs.dev_sizes, seed,
+                                                  epoch, full=full, w=w)
+        hold("shard_row_keys", torch.cat([rowtab.long(), m_of]),
+             torch.cat([rowtab_ref.long(), m_ref]),
+             f"{label} within_shard_shuffle={wss}: {sids.numel()} rows")
+        before = ck.launches["shard_expand"]
+        got = SM.expand_shard_indices_cuda(sids, sizes, seed=seed,
+                                           epoch=epoch,
+                                           within_shard_shuffle=wss)
+        check(ck.launches["shard_expand"] == before + 1,
+              f"{label}: the expansion did not launch shard_expand once")
+        hold("shard_expand", got, SM.expand_shard_indices_generic(
+            sids, sizes, seed=seed, epoch=epoch, within_shard_shuffle=wss),
+             f"{label} within_shard_shuffle={wss} (all {got.numel()} lanes)")
+        return got
+
+    sizes = [5, 0, 7, 3, 4]
+    for wss, want in SHARD_GOLDENS.items():
+        g = SM.expand_shard_indices_cuda([2, 0, 3], sizes, seed=3, epoch=1,
+                                         within_shard_shuffle=wss)
+        print(f"shard golden within_shard_shuffle={wss}: {g.tolist()}")
+        check(g.is_cuda and g.tolist() == want, "shard golden differs")
+    check(SM.shard_seed(3, 2) == 11400714819323198484
+          and SM.shard_sample_order(2, 7, seed=3, epoch=1).tolist()
+          == [5, 3, 6, 1, 2, 4, 0]
+          and list(SM.shuffle_buffer(range(12), 4, seed=5, epoch=0))
+          == [3, 4, 1, 5, 0, 6, 8, 2, 11, 9, 10, 7],
+          "the host shard goldens differ")
+    for wss in (True, SHARD_W, False):
+        hold_shard(sz1, shard_ids(SHARDS, 8, 3), wss, "S1 world=8 rank=3")
+    hold_shard(sz1, shard_ids(SHARDS, 1, 0), True, "S1 world=1")
+    for sizes, label in ((sz2, "S2"), (sz3, "S3")):
+        for wss in (True, SHARD_W):
+            hold_shard(sizes, shard_ids(SHARDS, 8, 3), wss,
+                       f"{label} world=8 rank=3")
+    t = triple_of(0x1_0000_0007, 3)
+    for sizes, wss, label in ((sz2, True, "S2"), (sz1, SHARD_W, "S1")):
+        sids = shard_ids(SHARDS, 8, 5)
+        hold("shard_expand", SM.expand_shard_indices_cuda(
+            sids, sizes, seed=None, epoch=None, within_shard_shuffle=wss,
+            triple=t), SM.expand_shard_indices_cuda(
+            sids, sizes, seed=0x1_0000_0007, epoch=3,
+            within_shard_shuffle=wss), f"{label} world=8 device triple")
+    # S4: 5e8 int64 lanes at world 8, held on sampled whole rows
+    sids = shard_ids(S4_SHARDS, 8, 3)
+    tabs = SH.shard_tables(sz4, dev)
+    rowtab, _m = ck.shard_row_keys(sids, tabs, 0, 1, full=True, w=0)
+    hold("shard_row_keys", rowtab, ck.shard_row_keys_ref(
+        sids, tabs.dev_sizes, 0, 1, full=True, w=0)[0],
+         f"S4 world=8 rank=3: {sids.numel()} rows")
+    out = SM.expand_shard_indices_cuda(sids, sz4, seed=0, epoch=1)
+    check(out.dtype == torch.int64 and out.numel() == sids.numel() * S4_M,
+          "S4: not int64 lanes of every row")
+    pick = torch.from_numpy(np.unique(np.concatenate([
+        np.random.default_rng(5).choice(sids.numel(), 1024, replace=False),
+        [0, sids.numel() - 1]]))).to(dev)
+    hold("shard_expand", out.view(-1, S4_M)[pick].reshape(-1),
+         SM.expand_shard_indices_generic(sids[pick], sz4, seed=0, epoch=1),
+         f"S4 world=8 rank=3: {pick.numel()} of {sids.numel()} whole rows "
+         f"(seeded, first, last), max index {int(out.max())}")
+    check(int(out.max()) > 2**31, "S4 indices do not pass 2^31")
+    del out, rowtab, sids, t
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------ main path
@@ -920,6 +1063,105 @@ def main() -> None:
          mix_sh_elastic, want, it1, c4)
     torch.cuda.empty_cache()
 
+    # ------------------------------------------- slice-4 main path
+    # 15: PartialShuffleShardSampler under a real DataLoader, S1 at world 8
+    # for two epochs, then a reshard 8 -> 16 in epoch 1; the plain versions
+    # of the shard kernels are wrapped to count any call
+    plain_calls = [0]
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            plain_calls[0] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    plain_fns = (SH.shard_row_keys_ref, SH.shard_expand_ref)
+    SH.shard_row_keys_ref = ck.shard_row_keys_ref = counted(plain_fns[0])
+    SH.shard_expand_ref = ck.shard_expand_ref = counted(plain_fns[1])
+    ck.reset_launches()
+    expansions = 0
+    shard_out, served_ids, remainders = {}, {}, {}
+    try:
+        for epoch in (0, 1):
+            for rank in range(8):
+                s = pt.PartialShuffleShardSampler(SHARDS, num_replicas=8,
+                                                  rank=rank)
+                s.set_epoch(epoch)  # the shard-id regen + its pinned copy
+                pending = s._pending
+                shard_out[epoch, rank] = s.device_epoch_indices(sz1)
+                expansions += 1
+                check(s._pending is pending and s._pending_epoch == epoch
+                      and s.state_dict()["offset"] == 0,
+                      "device_epoch_indices touched the prefetch or the "
+                      "consumption counter")
+                served_ids[epoch, rank] = torch.cat(list(DataLoader(
+                    IdDataset(SHARDS), batch_size=None,
+                    sampler=BatchSampler(s, 1024, False),
+                    num_workers=2 if rank == 0 else 0)))
+                check(s._pending is None,
+                      "the DataLoader did not take the set_epoch prefetch")
+                if epoch == 1 and rank == 0:
+                    state = s.state_dict(consumed=SHARD_CONSUMED)
+        for rank in range(16):
+            es = pt.PartialShuffleShardSampler.reshard_from_state_dict(
+                state, num_replicas=16, rank=rank)
+            remainders[rank] = (es.device_epoch_indices(sz1), es)
+            expansions += 1
+        torch.cuda.synchronize()
+    finally:
+        SH.shard_row_keys_ref = ck.shard_row_keys_ref = plain_fns[0]
+        SH.shard_expand_ref = ck.shard_expand_ref = plain_fns[1]
+    launches4 = dict(ck.launches)
+    print(f"kernels (slice-4 main path): {json.dumps(launches4)}; "
+          f"{expansions} expansions, plain shard versions called "
+          f"{plain_calls[0]} times")
+    for name in SLICE4:
+        check(launches4[name] == expansions,
+              f"kernel {name} ran {launches4[name]} times for {expansions} "
+              "expansions on the slice-4 main path")
+    check(plain_calls[0] == 0, "a plain shard version ran on the main path")
+    check(launches4["index_amortized"] > 0,
+          "the shard-id regen did not run the index kernels")
+
+    # the slice-4 main path's outputs against the law
+    for epoch in (0, 1):
+        got = torch.cat([shard_out[epoch, r] for r in range(8)])
+        counts = torch.bincount(got.long(), minlength=SHARDS * SHARD_M)
+        ok = (got.dtype == torch.int32 and int(counts.min()) == 1
+              and int(counts.max()) == 1)
+        for rank in range(8):
+            want_ids = pt.epoch_indices_cuda(SHARDS, SHARD_W, 0, epoch, rank,
+                                             8)
+            ok = ok and torch.equal(served_ids[epoch, rank],
+                                    want_ids.cpu().long())
+            ok = ok and torch.equal(
+                shard_out[epoch, rank], SM.expand_shard_indices_generic(
+                    served_ids[epoch, rank].to(dev), sz1, seed=0,
+                    epoch=epoch))
+        print(f"shard sampler S1 world=8 epoch {epoch}: each rank's "
+              f"device_epoch_indices ({shard_out[epoch, 0].numel()} int32 "
+              f"lanes) equals the plain expansion of the shard ids its "
+              f"DataLoader served; the 8 ranks cover [0, 1e8) exactly "
+              f"once: {ok}")
+        check(ok, f"the slice-4 main path differs in epoch {epoch}")
+    consumed = torch.cat([shard_out[1, r][:SHARD_CONSUMED * SHARD_M]
+                          for r in range(8)])
+    rest = torch.cat([out for out, _es in remainders.values()])
+    counts = torch.bincount(torch.cat([consumed, rest]).long(),
+                            minlength=SHARDS * SHARD_M)
+    ok = int(counts.min()) == 1 and int(counts.max()) == 1
+    for out, es in remainders.values():
+        ok = ok and torch.equal(out, SM.expand_shard_indices_generic(
+            torch.tensor(list(es), device=dev), sz1, seed=0, epoch=1))
+    print(f"shard sampler reshard 8 -> 16 after {SHARD_CONSUMED} shards per "
+          f"old rank in epoch 1: the 16 remainder expansions "
+          f"({rest.numel()} lanes) equal the plain expansion of their shard "
+          f"streams, and with the consumed prefix cover [0, 1e8) exactly "
+          f"once: {ok}")
+    check(ok, "the resharded shard expansion differs")
+    del shard_out, served_ids, remainders, consumed, rest, counts, got
+    torch.cuda.empty_cache()
+
     # 10: two gloo processes on the one card, divergent local seeds
     port = free_port()
     procs = [subprocess.Popen(
@@ -1170,8 +1412,99 @@ def main() -> None:
                 s, None, None, 5, 256, epoch_samples=es, triple=t3), 20)
             line += f", device triple {tri_ms:.4f} ms"
         print(f"{line} | {card}")
+
+    # the shard kernels: S1 at world 8 (the main path) and 1, S2, S3, S4
+    def shard_work(sizes, sids, wss):
+        """Lanes of an expansion in a body window (inner bijection), in a
+        tail (tail bijection) or left in storage order: this run's data."""
+        m = sizes[sids.cpu().numpy()]
+        full, w = SH.shuffle_mode(wss)
+        W = m if full else np.minimum(w, m)
+        body = np.where(W > 1, m // np.maximum(W, 1) * W, m)
+        shuffled = W > 1
+        return (int(body[shuffled].sum()), int((m - body)[shuffled].sum()),
+                int(m[~shuffled].sum()))
+
+    for sizes, label, world, wss in (
+            (sz1, "S1", 8, True), (sz1, "S1", 8, SHARD_W),
+            (sz1, "S1", 8, False), (sz1, "S1", 1, True),
+            (sz1, "S1", 1, SHARD_W), (sz2, "S2", 8, True),
+            (sz2, "S2", 8, SHARD_W), (sz3, "S3", 8, True),
+            (sz3, "S3", 8, SHARD_W), (sz4, "S4", 8, True)):
+        sids = pt.epoch_indices_cuda(sizes.size, SHARD_W, 0, 1, 5 % world,
+                                     world)
+        tabs = SH.shard_tables(sizes, dev)
+        full, w = SH.shuffle_mode(wss)
+        rowtab, m_of = ck.shard_row_keys(sids, tabs, 0, 1, full=full, w=w,
+                                         sizes_out=True)
+        ends = None if tabs.m_uniform else torch.cumsum(m_of, 0)
+        lanes = (sids.numel() * tabs.m_uniform if ends is None
+                 else int(ends[-1]))
+        rows_n, words = sids.numel(), SH.row_words(24)
+        tag = f"{label} world={world} within_shard_shuffle={wss}"
+        if wss is True and label != "S4":
+            ms = gpu_ms(lambda: ck.shard_row_keys(sids, tabs, 0, 1, full=True,
+                                                  w=0), 50)
+            plain = gpu_ms(lambda: ck.shard_row_keys_ref(
+                sids, tabs.dev_sizes, 0, 1, full=True, w=0), 5)
+            b_ms, b_by = bound(rows_n * (ROW_BASE_OPS + 2 * 24 * ROW_KEY_OPS),
+                               rows_n * (4 + 8 + 4 * words))
+            print(f"time shard_row_keys {tag}: kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}; "
+                  f"{rows_n} rows), {b_ms / ms:.1%} of bound | {card}")
+            rows.setdefault("shard_row_keys", (ms, plain, b_ms, b_by))
+        body, tail, seq = shard_work(sizes, sids, wss)
+        lane = SHARD_LANE_OPS + (0 if ends is None else SEARCH_STEP_OPS
+                                 * int(np.ceil(np.log2(max(rows_n, 2)))))
+        ops = (body * (lane + INNER_KEY_OPS + son)
+               + tail * (lane + TAIL_KEY_OPS + son) + seq * lane)
+        nbytes = (lanes * tabs.out_dtype.itemsize
+                  + rows_n * (4 + 8 + 4 * words + (0 if ends is None else 8)))
+        kw = dict(lanes=lanes, full=full, w=w)
+        big = label == "S4" or world == 1
+        ms = gpu_ms(lambda: ck.shard_expand(rowtab, sids, tabs, ends, **kw),
+                    5 if big else 20)
+        plain = None
+        if label != "S4":  # S4's plain version needs ~80 GB of int64
+            torch.cuda.reset_peak_memory_stats()
+            plain = gpu_ms(lambda: ck.shard_expand_ref(
+                rowtab, sids, tabs.dev_offsets, ends,
+                m_uniform=tabs.m_uniform, out_dtype=tabs.out_dtype, **kw),
+                2 if big else 3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        b_ms, b_by = bound(ops, nbytes)
+        plain_s = ("not measured" if plain is None
+                   else f"{plain:.4f} ms ({peak:.1f} GiB peak)")
+        print(f"time shard_expand {tag}: kernel {ms:.4f} ms, plain "
+              f"{plain_s}, bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G "
+              f"int32 ops over {body} body + {tail} tail + {seq} storage-"
+              f"order lanes, {nbytes / 1e6:.1f} MB), {b_ms / ms:.1%} of "
+              f"bound | {card}")
+        rows.setdefault("shard_expand", (ms, plain, b_ms, b_by))
+        del sids, rowtab, m_of, ends
+        torch.cuda.empty_cache()
+    # the slice-4 regen per epoch: the sampler's shard ids and expansion
+    for sizes, label, world in ((sz1, "S1", 8), (sz1, "S1", 1),
+                                (sz2, "S2", 8)):
+        sampler = pt.PartialShuffleShardSampler(SHARDS, num_replicas=world,
+                                                rank=5 % world)
+        fn = lambda sm=sampler, sz=sizes: sm.device_epoch_indices(sz)
+        reps = 20 if world == 8 else 5
+        walls = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        line = (f"shard regen per epoch {label} world={world} (shard ids + "
+                f"expansion, 4 launches): host wall to ready median "
+                f"{float(np.median(walls)):.4f} ms min {min(walls):.4f} ms")
+        if label == "S1":  # mixed sizes read the epoch length back
+            line = line.replace(": host", f": device "
+                                f"{gpu_ms(fn, reps):.4f} ms, host")
+        print(f"{line} | {card}")
     print("library call: none (no single PyTorch call computes this law or "
-          "the mixture's; torch.randperm is a different function)")
+          "the mixture's or §7's; torch.randperm is a different function)")
 
     replaces = {
         "window_order_ids":
@@ -1188,6 +1521,10 @@ def main() -> None:
             "partiallyshuffledistributedsampler_tpu/ops/mixture.py:534",
         "mixture_fused":
             "partiallyshuffledistributedsampler_tpu/ops/mixture.py:426",
+        "shard_row_keys":
+            "partiallyshuffledistributedsampler_tpu/sampler/shard_mode.py:121",
+        "shard_expand":
+            "partiallyshuffledistributedsampler_tpu/sampler/shard_mode.py:437",
     }
     kernels = []
     for name in replaces:
@@ -1196,11 +1533,12 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "partiallyshuffledistributedsampler_tpu_torch/csrc/"
                       + ("mixture_kernels.cu" if name in SLICE3
+                         else "shard_kernels.cu" if name in SLICE4
                          else "index_kernels.cu"),
             "replaces": replaces[name],
             # the count over the main paths' runs
             "launches": sum(run.get(name, 0) for run in (
-                launches, launches2, launches3, launches3b)),
+                launches, launches2, launches3, launches3b, launches4)),
             "max_abs_err": stats[name]["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

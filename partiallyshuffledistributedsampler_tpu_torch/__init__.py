@@ -9,8 +9,9 @@ The law is the one frozen in ``SPEC.md``: the same
 the JAX package ``partiallyshuffledistributedsampler_tpu``, and the
 sampler checkpoints of the two packages are interchangeable.  The weighted
 multi-corpus mixture (SPEC.md §8: ``MixtureSpec``,
-``PartialShuffleMixtureSampler``, ``MixtureEpochIterator``) runs on the
-card through its own kernels.
+``PartialShuffleMixtureSampler``, ``MixtureEpochIterator``) and
+shard-index mode (SPEC.md §7: ``PartialShuffleShardSampler``,
+``expand_shard_indices_cuda``) run on the card through their own kernels.
 """
 
 from .ops import (  # noqa: F401
@@ -40,8 +41,16 @@ from .sampler import (  # noqa: F401
     DeviceEpochIterator,
     MixtureEpochIterator,
     PartialShuffleMixtureSampler,
+    PartialShuffleShardSampler,
     PartiallyShuffleDistributedSampler,
     StatefulDataLoader,
     batch_index_window,
+    expand_shard_indices,
+    expand_shard_indices_cpu,
+    expand_shard_indices_cuda,
+    expand_shard_indices_generic,
+    shard_sample_order,
+    shard_seed,
+    shuffle_buffer,
 )
 from .utils.metrics import RegenTimer  # noqa: F401

@@ -122,6 +122,11 @@ def as_u32_scalar(v):
     return v.to(torch.int64) & _M32
 
 
+def u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as the int32 tensor of their bits."""
+    return torch.where(x > INT32_MAX, x - (1 << 32), x).to(torch.int32)
+
+
 def seed_triple(seed, epoch) -> tuple:
     """``(seed_lo, seed_hi, epoch)`` as Python ints in uint32 range: the
     layout of the seed triple that the kernels and the seed agreement of

@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/``.
 
-Seven kernels, each with a wrapper, a plain PyTorch version and a launch
+Nine kernels, each with a wrapper, a plain PyTorch version and a launch
 counter:
 
 ====================  ===================================  ==========================
@@ -22,6 +22,13 @@ mixture_source_keys   ``mixture_source_keys_ref``          ``ops/mixture.py``
                                                            (its [S] key vectors)
 mixture_fused         ``mixture_fused_ref`` (the fused     ``ops/mixture.py``
                       evaluator of ``ops/mixture.py``)     ``_fused_mixture_eval``
+shard_row_keys        ``shard_row_keys_ref``               ``sampler/shard_mode.py``
+                      (``ops/shard.py``)                   ``_shard_epoch_keys`` and
+                                                           the per-row key columns
+shard_expand          ``shard_expand_ref``                 ``sampler/shard_mode.py``
+                      (``ops/shard.py``)                   ``_class_expand_jit``,
+                                                           ``_bucket_expand_jit``,
+                                                           ``_bucket_scatter_jit``
 ====================  ===================================  ==========================
 
 (paths of the JAX package ``partiallyshuffledistributedsampler_tpu``).  The
@@ -43,7 +50,8 @@ counts kernel launches per wrapper, and nothing else.
 
 The kernels are built with ``nvcc`` at first use into ``csrc/build/`` of
 this package, one shared library per source (``index_kernels.cu``,
-``mixture_kernels.cu``), both compiled at once and each named by a hash of
+``mixture_kernels.cu``, ``shard_kernels.cu``), all compiled at once and
+each named by a hash of
 every file its build reads (the source and ``law.cuh``), so an edited file
 rebuilds.  They are bound through ctypes over a plain C ABI.  Nothing is
 built or imported from CUDA when this module is imported.
@@ -59,14 +67,15 @@ import subprocess
 import numpy as np
 import torch
 
-from . import core, mixture
+from . import core, mixture, shard
 
 _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
 #: one shared library per source; every build also reads ``_HEADER``
 _SOURCES = {"index": os.path.join(_CSRC, "index_kernels.cu"),
-            "mixture": os.path.join(_CSRC, "mixture_kernels.cu")}
+            "mixture": os.path.join(_CSRC, "mixture_kernels.cu"),
+            "shard": os.path.join(_CSRC, "shard_kernels.cu")}
 _HEADER = os.path.join(_CSRC, "law.cuh")
 _BUILD_DIR = os.path.join(_CSRC, "build")
 #: nvcc flags: Hopper's sm_90a, optimised, a shared library with a C ABI;
@@ -79,7 +88,8 @@ MAX_ROUNDS = 64
 #: kernel launches per wrapper (reset with ``reset_launches``)
 launches = {"window_order_ids": 0, "index_general": 0, "index_amortized": 0,
             "index_general_wide": 0, "index_amortized_wide": 0,
-            "mixture_source_keys": 0, "mixture_fused": 0}
+            "mixture_source_keys": 0, "mixture_fused": 0,
+            "shard_row_keys": 0, "shard_expand": 0}
 
 _libs: dict = {}
 #: the compiler's output of the builds this process made ("" if prebuilt)
@@ -120,7 +130,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str = "index") -> str:
-    """Where the build of library ``name`` ('index' or 'mixture') of the
+    """Where the build of library ``name`` ('index', 'mixture' or 'shard') of the
     current sources lives: named by a hash of every file its build reads
     and of the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -186,6 +196,13 @@ def _load(name: str) -> ctypes.CDLL:
             lib.psds_index_general_wide.argtypes = general
             lib.psds_index_amortized.argtypes = amortized
             lib.psds_index_amortized_wide.argtypes = amortized
+        elif name == "shard":
+            fns = (lib.psds_shard_row_keys, lib.psds_shard_expand)
+            lib.psds_shard_row_keys.argtypes = [ptr, ptr, ptr, u64, ptr, u32,
+                                                i32, i32, *keys, ptr]
+            lib.psds_shard_expand.argtypes = [ptr, ptr, ptr, ptr, ptr, u64,
+                                              u64, u32, u32, i32, i32, i32,
+                                              ptr]
         else:
             fns = (lib.psds_mixture_source_keys, lib.psds_mixture_fused)
             lib.psds_mixture_source_keys.argtypes = [ptr, ptr, i32, i32,
@@ -496,11 +513,6 @@ _mixture_tables: dict = {}
 _MIXTURE_TABLES_CAP = 16
 
 
-def _u32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) as the int32 tensor of their bits."""
-    return torch.where(x > core.INT32_MAX, x - (1 << 32), x).to(torch.int32)
-
-
 def _source_table(spec) -> np.ndarray:
     """uint32 [S, 8] rows of the mixture kernels: n, W, nw, tail, k,
     body = nw*W, base lo, base hi."""
@@ -569,7 +581,7 @@ def mixture_source_keys_ref(spec, seed, epoch, *,
         for v in (mixture.rotation_key(seed, epoch),
                   core.as_u32_scalar(epoch))
     ])
-    return _u32_bits(torch.cat([head, rows]))
+    return core.u32_bits(torch.cat([head, rows]))
 
 
 def mixture_source_keys(spec, seed, epoch, *,
@@ -701,5 +713,97 @@ def mixture_fused(keys: torch.Tensor, spec, seed, epoch, *, rank=None,
         src.data_ptr(), keys.data_ptr(), rounds, int(bool(shuffle)),
         int(bool(order_windows)), int(spec.rotated(shuffle)),
         int(bool(wide_pos)), int(spec.out_dtype() == torch.int64), stream,
+    ))
+    return out
+
+
+# ---------------------------------------------------------------- shards
+shard_row_keys_ref = shard.shard_row_keys_ref
+shard_expand_ref = shard.shard_expand_ref
+
+
+def _check_shard_args(sids: torch.Tensor, device: torch.device, w: int,
+                      rounds: int) -> None:
+    if not (sids.dtype == torch.int32 and sids.dim() == 1
+            and sids.is_contiguous() and sids.device == device):
+        raise ValueError(
+            f"shard ids must be a contiguous 1-D int32 tensor on {device}")
+    if not 0 <= w <= core.INT32_MAX:
+        raise ValueError(f"window must be in [0, 2^31), got {w}")
+    if not 0 <= rounds <= MAX_ROUNDS:
+        raise ValueError(f"rounds must be in [0, {MAX_ROUNDS}], got {rounds}")
+
+
+def shard_row_keys(sids: torch.Tensor, tables, seed, epoch, *, full: bool,
+                   w: int, rounds: int = core.DEFAULT_ROUNDS,
+                   sizes_out: bool = False, triple=None) -> tuple:
+    """The row records of the shard stream ``sids`` (``shard_row_keys_ref``)
+    on ``sids``' device, from the scalars or the seed triple: int32
+    [R * shard.row_words(rounds)], and with ``sizes_out`` each row's shard
+    size (int64 [R]; None otherwise on CUDA).  ``tables`` is the
+    ``shard.shard_tables`` of the sizes on that device."""
+    seed_p, epoch_p = _plain_keys(seed, epoch, triple)
+    if device_kind(sids.device) == "cpu":
+        return shard_row_keys_ref(sids, tables.dev_sizes, seed_p, epoch_p,
+                                  full=full, w=w, rounds=rounds)
+    _check_shard_args(sids, tables.device, w, rounds)
+    rows = sids.numel()
+    rowtab = torch.empty(rows * shard.row_words(rounds), dtype=torch.int32,
+                         device=sids.device)
+    m_of = (torch.empty(rows, dtype=torch.int64, device=sids.device)
+            if sizes_out else None)
+    if rows == 0:
+        return rowtab, m_of
+    lib = _load("shard")
+    lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, sids.device)
+    stream = torch.cuda.current_stream(sids.device).cuda_stream
+    launches["shard_row_keys"] += 1
+    _check("shard_row_keys", lib.psds_shard_row_keys(
+        rowtab.data_ptr(), None if m_of is None else m_of.data_ptr(),
+        sids.data_ptr(), rows, tables.dev_sizes.data_ptr(), w, int(full),
+        rounds, lo, hi, ep, seeds, stream,
+    ))
+    return rowtab, m_of
+
+
+def shard_expand(rowtab: torch.Tensor, sids: torch.Tensor, tables,
+                 ends: "torch.Tensor | None", *, lanes: int, full: bool,
+                 w: int, rounds: int = core.DEFAULT_ROUNDS) -> torch.Tensor:
+    """The expansion of the shard stream ``sids`` on ``rowtab``'s device
+    (``shard_expand_ref``): ``lanes`` global sample indices in stream
+    order, int32, or int64 when the whole shard space sums past 2^31.
+    ``ends`` is the inclusive prefix of the rows' sizes (int64 [R]), or
+    None when every shard has ``tables.m_uniform`` samples."""
+    kw = dict(lanes=lanes, full=full, w=w, rounds=rounds)
+    if device_kind(rowtab.device) == "cpu":
+        return shard_expand_ref(rowtab, sids, tables.dev_offsets, ends,
+                                m_uniform=tables.m_uniform,
+                                out_dtype=tables.out_dtype, **kw)
+    _check_shard_args(sids, tables.device, w, rounds)
+    rows = sids.numel()
+    if not (rowtab.dtype == torch.int32 and rowtab.is_contiguous()
+            and rowtab.device == sids.device
+            and rowtab.numel() == rows * shard.row_words(rounds)):
+        raise ValueError("rowtab must be the shard_row_keys records of sids "
+                         "for this round count")
+    if ends is None:
+        if tables.m_uniform is None or lanes != rows * tables.m_uniform:
+            raise ValueError("ends=None takes uniform shard sizes and "
+                             "lanes = rows * size")
+    elif not (ends.dtype == torch.int64 and ends.is_contiguous()
+              and ends.shape == (rows,) and ends.device == sids.device):
+        raise ValueError(f"ends must be a contiguous int64 [{rows}] tensor "
+                         f"on {sids.device}")
+    out = torch.empty(lanes, dtype=tables.out_dtype, device=sids.device)
+    if lanes == 0:
+        return out
+    lib = _load("shard")
+    stream = torch.cuda.current_stream(sids.device).cuda_stream
+    launches["shard_expand"] += 1
+    _check("shard_expand", lib.psds_shard_expand(
+        out.data_ptr(), sids.data_ptr(), tables.dev_offsets.data_ptr(),
+        None if ends is None else ends.data_ptr(), rowtab.data_ptr(), lanes,
+        rows, tables.m_uniform or 0, w, int(full), rounds,
+        int(tables.out_dtype == torch.int64), stream,
     ))
     return out

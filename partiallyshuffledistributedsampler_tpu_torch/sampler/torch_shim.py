@@ -244,9 +244,13 @@ class PartiallyShuffleDistributedSampler(ChunkedIterMixin, Sampler):
         with self.regen_timer.measure():
             return self._epoch_indices(epoch)
 
-    def _epoch_indices(self, epoch: Optional[int]) -> np.ndarray:
+    def _epoch_indices(self, epoch: Optional[int], *,
+                       consume_prefetch: bool = True) -> np.ndarray:
         """The epoch's indices, from the ``set_epoch`` prefetch when it
-        holds this epoch (the prefetch is consumed), else generated now."""
+        holds this epoch, else generated now.  The prefetch is consumed
+        unless ``consume_prefetch=False``: a side reader (the shard
+        sampler's ``device_epoch_indices``) must not take it from the
+        training loop's next ``__iter__``."""
         e = self.epoch if epoch is None else int(epoch)
         # the elastic remainder regime applies only to the epoch being
         # resumed; an explicit other epoch is an ordinary full epoch
@@ -254,8 +258,9 @@ class PartiallyShuffleDistributedSampler(ChunkedIterMixin, Sampler):
             return self._elastic_indices(e)
         if self._pending_epoch == e and self._pending is not None:
             arr = self._pending.result()
-            self._pending = None
-            self._pending_epoch = None
+            if consume_prefetch:
+                self._pending = None
+                self._pending_epoch = None
             if arr is not None:  # None: forked child, thread never ran
                 return arr
         return self._generate_host(e)

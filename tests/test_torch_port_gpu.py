@@ -20,7 +20,9 @@ from partiallyshuffledistributedsampler_tpu_torch.ops import (
     core,
     cuda,
     cuda_kernel as ck,
+    shard as S,
 )
+from partiallyshuffledistributedsampler_tpu_torch.sampler import shard_mode
 
 pytestmark = pytest.mark.cuda
 
@@ -327,3 +329,99 @@ def test_mixture_sampler_iterator_and_runner_launches():
     whole = it.steps_per_epoch * 64
     assert int(total) == sum(int(jmix.mixture_epoch_indices_np(
         js, 0, e, 1, 2)[:whole].sum()) for e in (2, 3, 4))
+
+
+# ---------------------------------------------------- shard mode (§7)
+_SHARD_RNG = np.random.default_rng(11)
+#: (id, shard sizes, shard-id stream)
+SHARD_CASES = [
+    ("uniform", [1000] * 300, _SHARD_RNG.permutation(300)[:200]),
+    ("mixed", _SHARD_RNG.integers(0, 90, 200).tolist(),
+     _SHARD_RNG.permutation(200)[:150]),
+    ("many-sizes", np.concatenate([_SHARD_RNG.integers(1, 400, 300),
+                                   [0, 0, 1, 1, 2],
+                                   _SHARD_RNG.integers(200, 2000, 200)]),
+     _SHARD_RNG.permutation(505)[:400]),
+]
+SHARD_MODES = [True, 1, False, 9, np.int64(9), 64, 5000]
+
+
+@pytest.mark.parametrize("cid,sizes,ids", SHARD_CASES,
+                         ids=[c[0] for c in SHARD_CASES])
+def test_shard_kernels_match_host_and_plain(cid, sizes, ids):
+    tabs = S.shard_tables(sizes, "cuda")
+    sids = torch.from_numpy(np.asarray(ids, dtype=np.int32)).cuda()
+    for wss in SHARD_MODES:
+        full, w = S.shuffle_mode(wss)
+        for epoch in (0, 5):
+            want = shard_mode.expand_shard_indices_cpu(
+                ids, sizes, seed=4, epoch=epoch, within_shard_shuffle=wss)
+            ck.reset_launches()
+            for shard_ids in (ids, sids):  # from the host, from the card
+                got = shard_mode.expand_shard_indices_cuda(
+                    shard_ids, sizes, seed=4, epoch=epoch,
+                    within_shard_shuffle=wss)
+                assert got.is_cuda and got.dtype == torch.int32
+                np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+            assert ck.launches["shard_expand"] == 2
+            assert ck.launches["shard_row_keys"] == 2
+            plain = shard_mode.expand_shard_indices_generic(
+                sids, sizes, seed=4, epoch=epoch, within_shard_shuffle=wss)
+            assert torch.equal(got, plain)
+            rows, _m = ck.shard_row_keys(sids, tabs, 4, epoch, full=full,
+                                         w=w)
+            rows_ref, _m = ck.shard_row_keys_ref(sids, tabs.dev_sizes, 4,
+                                                 epoch, full=full, w=w)
+            assert torch.equal(rows, rows_ref)
+
+
+def test_shard_goldens_and_int64_space_on_gpu():
+    sizes = [5, 0, 7, 3, 4]
+    got = shard_mode.expand_shard_indices_cuda([2, 0, 3], sizes, seed=3,
+                                               epoch=1)
+    assert got.tolist() == [10, 8, 11, 6, 7, 9, 5, 1, 2, 0, 3, 4, 13, 12, 14]
+    got = shard_mode.expand_shard_indices_cuda(
+        [2, 0, 3], sizes, seed=3, epoch=1, within_shard_shuffle=2)
+    assert got.tolist() == [5, 6, 8, 7, 9, 10, 11, 0, 1, 3, 2, 4, 12, 13, 14]
+    big = [10**9, 1_500_000_000, 7, 5, 9]
+    for wss in (True, 3, False):
+        got = shard_mode.expand_shard_indices_cuda(
+            [3, 2, 4], big, seed=9, epoch=2, within_shard_shuffle=wss)
+        want = shard_mode.expand_shard_indices_cpu(
+            [3, 2, 4], big, seed=9, epoch=2, within_shard_shuffle=wss)
+        assert got.dtype == torch.int64 and int(got.min()) > 2**31
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_shard_device_triple_matches_scalars():
+    seed, epoch = (1 << 40) + 0xFFFFFFF7, 0xFFFFFFF0
+    sizes = _SHARD_RNG.integers(0, 300, 400).tolist()
+    ids = _SHARD_RNG.permutation(400)
+    for wss in (True, 17):
+        got = shard_mode.expand_shard_indices_cuda(
+            ids, sizes, seed=None, epoch=None, within_shard_shuffle=wss,
+            triple=_triple(seed, epoch))
+        want = shard_mode.expand_shard_indices_cuda(
+            ids, sizes, seed=seed, epoch=epoch, within_shard_shuffle=wss)
+        assert torch.equal(got, want)
+
+
+def test_shard_sampler_device_epoch_indices_on_gpu():
+    sizes = [25] * 64
+    mixed = [(7 * i) % 41 for i in range(64)]
+    s = shard_mode.PartialShuffleShardSampler(64, num_replicas=4, rank=2,
+                                              seed=6)
+    s.set_epoch(3)
+    pending = s._pending
+    shard_ids = jcpu.epoch_indices_np(64, 64, 6, 3, 2, 4)
+    ck.reset_launches()
+    for sz, wss in ((sizes, 5), (mixed, True)):
+        got = s.device_epoch_indices(sz, within_shard_shuffle=wss)
+        assert got.is_cuda
+        want = shard_mode.expand_shard_indices_cpu(
+            shard_ids, sz, seed=6, epoch=3, within_shard_shuffle=wss)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert ck.launches["shard_expand"] == 2
+    assert s._pending is pending and s.state_dict()["offset"] == 0
+    assert list(s) == shard_ids.tolist()
+    assert s._pending is None

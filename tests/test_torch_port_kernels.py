@@ -26,6 +26,9 @@ from partiallyshuffledistributedsampler_tpu_torch.ops import (
     ensure_index_backend,
     epoch_indices_host,
 )
+from partiallyshuffledistributedsampler_tpu_torch.sampler.shard_mode import (
+    expand_shard_indices_cuda,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "partiallyshuffledistributedsampler_tpu_torch"
@@ -177,10 +180,12 @@ def test_cpu_routing_launches_no_kernel():
     cuda.epoch_indices_cuda(4096, 256, 0, 0, 0, 8, device="cpu")
     cuda.epoch_indices_cuda(4096, 256, 0, 0, 0, 8, device="cpu",
                             amortize=False)
+    expand_shard_indices_cuda([2, 0, 3], [5, 0, 7, 3, 4], device="cpu")
     assert ck.launches == {"window_order_ids": 0, "index_general": 0,
                            "index_amortized": 0, "index_general_wide": 0,
                            "index_amortized_wide": 0,
-                           "mixture_source_keys": 0, "mixture_fused": 0}
+                           "mixture_source_keys": 0, "mixture_fused": 0,
+                           "shard_row_keys": 0, "shard_expand": 0}
 
 
 # ------------------------------------------------------------- refusals
