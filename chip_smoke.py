@@ -47,6 +47,17 @@ plain version and its bound.  Every failure exits non-zero.
   in-shard orders.  The main path: ``PartialShuffleShardSampler`` at S1 /
   world 8 under a real ``DataLoader`` for two epochs, each rank's
   ``device_epoch_indices`` beside it, then a reshard 8 -> 16.
+* Slice 5 redesigned two kernels: the amortized index kernels compute the
+  window order themselves (one launch per regen, checked wherever a regen
+  is routed), and ``shard_row_keys`` stages its rows' heads in shared
+  memory and writes their records four words per thread, coalesced.  The
+  timings print the launch floor beside them, and a fill of the same
+  table beside ``shard_row_keys``.
+
+``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
+the ``shard_row_keys`` times, the launches per regen and a digest of each
+output, through entry points that earlier trees share: run it as a copy
+inside an older checkout to time that tree's route on the same card.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -67,17 +78,16 @@ N_LLAMA = 10_000_000_000  # the Llama-3 8B pretrain config's index space
 N_2_32 = 2**32 + 4097  # num_samples >= 2^32 at world 1
 N_WIDE1 = 2**31 + 5000  # the least wide space, agreed at world 1 (17 GB)
 #: the slice-1 kernels and the slice-2 ones (the wide forms)
-SLICE1 = ("window_order_ids", "index_general", "index_amortized")
-SLICE2 = ("window_order_ids", "index_amortized", "index_general_wide",
-          "index_amortized_wide")
+SLICE1 = ("index_general", "index_amortized")
+SLICE2 = ("index_amortized", "index_general_wide", "index_amortized_wide")
 #: the slice-3 kernels, and the index kernels its mixture path never runs
 SLICE3 = ("mixture_source_keys", "mixture_fused")
 #: the slice-4 kernels (shard-index mode)
 SLICE4 = ("shard_row_keys", "shard_expand")
 #: shards each old rank has consumed when its checkpoint reshards 8 -> 16
 SHARD_CONSUMED = 5000
-INDEX_KERNELS = ("window_order_ids", "index_general", "index_amortized",
-                 "index_general_wide", "index_amortized_wide")
+INDEX_KERNELS = ("index_general", "index_amortized", "index_general_wide",
+                 "index_amortized_wide")
 #: M1: the 1B three-corpus anchor of bench.py / README (web, code, books)
 M1_SOURCES, M1_WEIGHTS = (700_000_000, 200_000_000, 100_000_000), (70, 20, 10)
 #: M2: M1's spec over config 5's 10B-sample epoch (about 10 passes)
@@ -195,6 +205,118 @@ def nvidia_smi(query: str) -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def device_ms(fn, reps: int, max_sm_mhz: float) -> float:
+    """Device time per call: CUDA events around ``reps`` calls queued
+    behind a busy-wait kernel, so host launch gaps are hidden."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    cycles = int(min(5.0, 1.5 * reps * host_s + 1e-3) * max_sm_mhz * 1e6)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def host_walls(fn, reps: int) -> list:
+    """Host wall ms of each of ``reps`` calls, each to a synchronised
+    device."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return walls
+
+
+def launch_floor_ms(max_sm_mhz: float) -> float:
+    """The back-to-back device time of an empty kernel
+    (``torch.cuda._sleep(0)``: one thread that exits at once), by
+    ``device_ms``: what a kernel costs that does nothing."""
+    import torch
+
+    return device_ms(lambda: torch.cuda._sleep(0), 200, max_sm_mhz)
+
+
+def digest(t) -> int:
+    """A position-weighted checksum of a tensor's values (the sum of
+    value * (position + 1), mod 2^64): two outputs with equal digests are
+    the same output but for a collision."""
+    import torch
+
+    acc, flat, chunk = 0, t.reshape(-1), 1 << 26
+    for c in range(0, flat.numel(), chunk):
+        seg = flat[c:c + chunk].long()
+        pos = torch.arange(c + 1, c + 1 + seg.numel(), device=seg.device)
+        acc = (acc + int((seg * pos).sum())) % 2**64
+    return acc
+
+
+def regen_report() -> None:
+    """``--regen``: the per-epoch regen times, the ``shard_row_keys``
+    times, the kernel launches of each call and a digest of its output,
+    for the package beside this file, through entry points that the trees
+    since slice 4 share."""
+    import numpy as np
+    import torch
+
+    import partiallyshuffledistributedsampler_tpu_torch as pt
+    from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        cuda_kernel as ck,
+        shard as SH,
+    )
+
+    card = nvidia_smi("name,power.limit")
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    print(card)
+    ck.build()
+    print(f"launch floor (empty kernel, back to back): "
+          f"{launch_floor_ms(sm_mhz):.4f} ms | {card}")
+    sz1 = shard_corpora()[0]
+    cases = [(f"regen per epoch n={n:.0e} W=8192 world={world}",
+              lambda n=n, w=world: pt.epoch_indices_cuda(n, W, 0, 1, 5 % w, w),
+              20 if world == 256 else 5)
+             for n, world in ((N_C4, 256), (N_C4, 8), (N_LLAMA, 256),
+                              (N_LLAMA, 8))]
+    for world in (8, 1):
+        sids = pt.epoch_indices_cuda(SHARDS, SHARD_W, 0, 1, 5 % world, world)
+        tabs = SH.shard_tables(sz1, "cuda")
+        cases.append((
+            f"shard_row_keys S1 world={world} ({sids.numel()} rows, full)",
+            lambda s=sids, t=tabs: ck.shard_row_keys(s, t, 0, 1, full=True,
+                                                     w=0)[0], 50))
+        sampler = pt.PartialShuffleShardSampler(SHARDS, num_replicas=world,
+                                                rank=5 % world)
+        cases.append((f"shard regen per epoch S1 world={world}",
+                      lambda sm=sampler: sm.device_epoch_indices(sz1),
+                      20 if world == 8 else 5))
+    for label, fn, reps in cases:
+        before = sum(ck.launches.values())
+        out = fn()
+        torch.cuda.synchronize()
+        n_launch = sum(ck.launches.values()) - before
+        dev = device_ms(fn, reps, sm_mhz)
+        walls = host_walls(fn, reps)
+        print(f"{label}: device {dev:.4f} ms, host wall to ready median "
+              f"{float(np.median(walls)):.4f} ms min {min(walls):.4f} ms, "
+              f"{n_launch} kernel launches, digest {digest(out)} | {card}")
+        del out
+        torch.cuda.empty_cache()
+
+
 def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -295,6 +417,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--gloo-worker"]:
         gloo_worker(int(sys.argv[2]), int(sys.argv[3]))
         return
+    if sys.argv[1:2] == ["--regen"]:
+        regen_report()
+        return
     try:
         import partiallyshuffledistributedsampler_tpu_torch as pt
         from partiallyshuffledistributedsampler_tpu_torch import parallel
@@ -326,6 +451,10 @@ def main() -> None:
     print(f"device: {torch.cuda.get_device_name(0)}, {sms} SMs, max SM "
           f"clock {max_sm_mhz:.0f} MHz, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+
+    def gpu_ms(fn, reps):
+        return device_ms(fn, reps, max_sm_mhz)
+
     t0 = time.perf_counter()
     ck.build()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
@@ -366,35 +495,38 @@ def main() -> None:
         check(equal and got.shape == want.shape,
               f"{name} {label} differs from its plain version")
 
+    ns256, _ = core.shard_sizes(N_C4, 256, False)
     for epoch in (0, 1):
-        ku = ck.window_order_ids(N_C4, W, 0, epoch)
-        hold("window_order_ids", ku,
-             ck.window_order_ids_ref(N_C4, W, 0, epoch, device=dev),
-             f"n=1e9 W=8192 nw={N_C4 // W} epoch={epoch}")
         for rank in (0, 255):
-            ns, _ = core.shard_sizes(N_C4, 256, False)
-            hold("index_amortized",
-                 ck.index_amortized(ku, N_C4, W, 0, epoch, rank, 256),
-                 ck.index_amortized_ref(ku, N_C4, W, 0, epoch, rank, 256, ns),
-                 f"n=1e9 W=8192 world=256 rank={rank} epoch={epoch}")
-            hold("index_general",
-                 ck.index_general(N_C4, W, 0, epoch, rank, 256, device=dev),
+            got = ck.index_amortized(N_C4, W, 0, epoch, rank, 256)
+            hold("index_amortized", got, ck.epoch_indices_amortized_ref(
+                N_C4, W, 0, epoch, rank, 256, ns256, device=dev),
+                 f"n=1e9 W=8192 world=256 rank={rank} epoch={epoch} (all "
+                 f"{ns256} lanes; window order in the kernel)")
+            general = ck.index_general(N_C4, W, 0, epoch, rank, 256,
+                                       device=dev)
+            hold("index_general", general,
                  ck.index_general_ref(N_C4, W, 0, epoch, rank, 256,
                                       device=dev),
                  f"n=1e9 W=8192 world=256 rank={rank} epoch={epoch} "
                  "(amortize=False shape)")
-    ku = ck.window_order_ids(N_C4, W, 0, 1)
+            hold("index_amortized", got, general,
+                 f"n=1e9 W=8192 world=256 rank={rank} epoch={epoch} against "
+                 "the general kernel")
     ns8, _ = core.shard_sizes(N_C4, 8, False)
-    hold("index_amortized", ck.index_amortized(ku, N_C4, W, 0, 1, 3, 8),
-         ck.index_amortized_ref(ku, N_C4, W, 0, 1, 3, 8, ns8),
+    got = ck.index_amortized(N_C4, W, 0, 1, 3, 8)
+    hold("index_amortized", got, ck.epoch_indices_amortized_ref(
+        N_C4, W, 0, 1, 3, 8, ns8, device=dev),
          "n=1e9 W=8192 world=8 rank=3 epoch=1 (all 125M lanes)")
+    hold("index_amortized", got, ck.index_general(N_C4, W, 0, 1, 3, 8),
+         "n=1e9 W=8192 world=8 rank=3 epoch=1 against the general kernel")
     for rank in range(8):
         kw = dict(partition="blocked", device=dev)
         hold("index_general",
              ck.index_general(N_IMAGENET, W, 0, 1, rank, 8, **kw),
              ck.index_general_ref(N_IMAGENET, W, 0, 1, rank, 8, **kw),
              f"ImageNet n=1281167 W=8192 world=8 blocked rank={rank}")
-    del ku
+    del got, general
     torch.cuda.empty_cache()
 
     # --------------------------------------------- 3b: n >= 2^31 (wide)
@@ -403,26 +535,26 @@ def main() -> None:
         return torch.from_numpy(bits.view(np.int32)).to(dev)
 
     def routed(name, fn):
-        """Run ``fn`` and check it launched kernel ``name`` once."""
-        before = ck.launches[name]
+        """Run ``fn`` and check it launched kernel ``name`` once and no
+        other kernel: a regen is one launch."""
+        before, total = ck.launches[name], sum(ck.launches.values())
         out = fn()
-        check(ck.launches[name] == before + 1, f"{name} was not launched")
+        check(ck.launches[name] == before + 1
+              and sum(ck.launches.values()) == total + 1,
+              f"{name} was not launched alone, once")
         check(out.is_cuda and out.dtype == torch.int64,
               f"{name} output is not CUDA int64")
         return out
 
     ns256, _ = core.shard_sizes(N_LLAMA, 256, False)
     for rank in (0, 255):
-        ku = ck.window_order_ids(N_LLAMA, W, 0, 1)
-        hold("window_order_ids", ku,
-             ck.window_order_ids_ref(N_LLAMA, W, 0, 1, device=dev),
-             f"n=1e10 W=8192 nw={N_LLAMA // W} epoch=1")
         got = routed("index_amortized_wide", lambda: pt.epoch_indices_cuda(
             N_LLAMA, W, 0, 1, rank, 256))
         hold("index_amortized_wide", got,
-             ck.index_amortized_wide_ref(ku, N_LLAMA, W, 0, 1, rank, 256,
-                                         ns256),
-             f"n=1e10 W=8192 world=256 rank={rank} (all {ns256} lanes)")
+             ck.epoch_indices_amortized_ref(N_LLAMA, W, 0, 1, rank, 256,
+                                            ns256, device=dev),
+             f"n=1e10 W=8192 world=256 rank={rank} (all {ns256} lanes; "
+             "window order in the kernel)")
         high = int(got.max().item())
         got = routed("index_general_wide", lambda: pt.epoch_indices_cuda(
             N_LLAMA, W, 0, 1, rank, 256, amortize=False))
@@ -438,21 +570,18 @@ def main() -> None:
     for n, world, rank in ((N_C4, 256, 5), (N_LLAMA, 256, 255)):
         wide = core.is_wide(n)
         t = triple_of(0x1_0000_0007, 3)
-        ku = ck.window_order_ids(n, W, 0x1_0000_0007, 3)
-        ku_t = ck.window_order_ids(n, W, None, None, triple=t)
-        hold("window_order_ids", ku_t, ku, f"n={n:.0e} device triple")
         general = ck.index_general_wide if wide else ck.index_general
         amortized = ck.index_amortized_wide if wide else ck.index_amortized
         name = "_wide" if wide else ""
+        want = general(n, W, 0x1_0000_0007, 3, rank, world)
         hold("index_general" + name,
-             general(n, W, None, None, rank, world, triple=t),
-             general(n, W, 0x1_0000_0007, 3, rank, world),
+             general(n, W, None, None, rank, world, triple=t), want,
              f"n={n:.0e} world={world} device triple")
         hold("index_amortized" + name,
-             amortized(ku_t, n, W, None, None, rank, world, triple=t),
-             amortized(ku, n, W, 0x1_0000_0007, 3, rank, world),
-             f"n={n:.0e} world={world} device triple")
-    del ku, ku_t, got
+             amortized(n, W, None, None, rank, world, triple=t), want,
+             f"n={n:.0e} world={world} device triple against the general "
+             "kernel's scalar launch")
+    del got, want
     torch.cuda.empty_cache()
 
     # world 8: 1.25B lanes (10 GB of int64), held on sampled lanes
@@ -669,6 +798,13 @@ def main() -> None:
     t = triple_of(0x1_0000_0007, 3)
     for sizes, wss, label in ((sz2, True, "S2"), (sz1, SHARD_W, "S1")):
         sids = shard_ids(SHARDS, 8, 5)
+        tabs = SH.shard_tables(sizes, dev)
+        full, w = SH.shuffle_mode(wss)
+        hold("shard_row_keys", ck.shard_row_keys(
+            sids, tabs, None, None, full=full, w=w, triple=t)[0],
+            ck.shard_row_keys_ref(sids, tabs.dev_sizes, 0x1_0000_0007, 3,
+                                  full=full, w=w)[0],
+            f"{label} world=8 device triple, against the plain version")
         hold("shard_expand", SM.expand_shard_indices_cuda(
             sids, sizes, seed=None, epoch=None, within_shard_shuffle=wss,
             triple=t), SM.expand_shard_indices_cuda(
@@ -993,10 +1129,9 @@ def main() -> None:
     launches3b = dict(ck.launches)
     print(f"kernels (single-source runners): {json.dumps(launches3b)}")
     check(launches3b["index_amortized"] == 4
-          and launches3b["window_order_ids"] == 4
-          and not any(launches3b[k] for k in SLICE3),
+          and sum(launches3b.values()) == 4,
           "the single-source runners did not regenerate once per epoch "
-          "through the index kernels")
+          "through one launch of the amortized kernel")
 
     # the slice-3 main path's outputs against the law
     whole = it.steps_per_epoch * 512
@@ -1194,26 +1329,9 @@ def main() -> None:
               "rank 1's own seed gives rank 0's row: the check is vacuous")
 
     # ---------------------------------------------------------------- 6
-    def gpu_ms(fn, reps):
-        """Device time per call: CUDA events around ``reps`` calls queued
-        behind a busy-wait kernel, so host launch gaps are hidden."""
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t
-        cycles = int(min(5.0, 1.5 * reps * host_s + 1e-3)
-                     * max_sm_mhz * 1e6)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
+    floor_ms = launch_floor_ms(max_sm_mhz)
+    print(f"launch floor (empty kernel, back to back): {floor_ms:.4f} ms | "
+          f"{card}")
 
     def bound(ops, nbytes):
         t_ops, t_bytes = ops / int_ops_per_s, nbytes / HBM_BYTES_PER_S
@@ -1234,28 +1352,23 @@ def main() -> None:
 
     nw = N_C4 // W
     son = 24 * ROUND_OPS
-    ku = ck.window_order_ids(N_C4, W, 0, 1)
     rows = {}
-    timings = [
-        ("window_order_ids", "n=1e9 W=8192 nw=122070",
-         lambda: ck.window_order_ids(N_C4, W, 0, 1),
-         lambda: ck.window_order_ids_ref(N_C4, W, 0, 1, device=dev),
-         nw * son, nw * 4),
-    ]
+    timings = []
+    # the amortized kernels: one inner bijection per body lane, the general
+    # law on the rest, and the window order's nw outer bijections
     for world, rank in ((256, 5), (8, 3)):
         ns, _ = core.shard_sizes(N_C4, world, False)
         body = nw * (W // world)
         rest_body, rest_tail = lane_classes(N_C4, world, rank, first=body)
         timings.append((
             "index_amortized", f"n=1e9 W=8192 world={world}",
-            lambda w=world, r=rank: ck.index_amortized(ku, N_C4, W, 0, 1, r,
-                                                       w),
-            lambda w=world, r=rank, ns=ns: ck.index_amortized_ref(
-                ku, N_C4, W, 0, 1, r, w, ns),
+            lambda w=world, r=rank: ck.index_amortized(N_C4, W, 0, 1, r, w),
+            lambda w=world, r=rank, ns=ns: ck.epoch_indices_amortized_ref(
+                N_C4, W, 0, 1, r, w, ns, device=dev),
             body * (son + INNER_KEY_OPS + POS_OPS)
             + rest_body * (2 * son + INNER_KEY_OPS + POS_OPS)
-            + rest_tail * (son + POS_OPS),
-            ns * 4 + nw * 4,
+            + rest_tail * (son + POS_OPS) + nw * son,
+            ns * 4,
         ))
     for n, world, rank, part, label in (
             (N_C4, 256, 5, "strided", "n=1e9 W=8192 world=256"),
@@ -1273,12 +1386,6 @@ def main() -> None:
             ns * 4,
         ))
     nwl = N_LLAMA // W
-    kul = ck.window_order_ids(N_LLAMA, W, 0, 1)
-    timings.append((
-        "window_order_ids", f"n=1e10 W=8192 nw={nwl}",
-        lambda: ck.window_order_ids(N_LLAMA, W, 0, 1),
-        lambda: ck.window_order_ids_ref(N_LLAMA, W, 0, 1, device=dev),
-        nwl * son, nwl * 4))
     for world, rank in ((256, 5), (8, 3)):
         ns, _ = core.shard_sizes(N_LLAMA, world, False)
         body = nwl * (W // world)
@@ -1286,15 +1393,15 @@ def main() -> None:
         timings.append((
             "index_amortized_wide", f"n=1e10 W=8192 world={world}",
             lambda w=world, r=rank: ck.index_amortized_wide(
-                kul, N_LLAMA, W, 0, 1, r, w),
+                N_LLAMA, W, 0, 1, r, w),
             # the plain version at world 8 needs ~60 GB of temporaries
             None if world == 8 else
-            lambda w=world, r=rank, ns=ns: ck.index_amortized_wide_ref(
-                kul, N_LLAMA, W, 0, 1, r, w, ns),
+            lambda w=world, r=rank, ns=ns: ck.epoch_indices_amortized_ref(
+                N_LLAMA, W, 0, 1, r, w, ns, device=dev),
             body * (son + INNER_KEY_OPS + POS_OPS + 1)
             + rest_body * (2 * son + INNER_KEY_OPS + POS_OPS + WIDE_OPS)
-            + rest_tail * (son + POS_OPS + WIDE_OPS),
-            ns * 8 + nwl * 4,
+            + rest_tail * (son + POS_OPS + WIDE_OPS) + nwl * son,
+            ns * 8,
         ))
     body, tail = lane_classes(N_LLAMA, 256, 5)
     timings.append((
@@ -1314,21 +1421,16 @@ def main() -> None:
         plain_s = ("not measured" if plain is None else f"{plain:.4f} ms")
         print(f"time {name} {label}: kernel {ms:.4f} ms, plain {plain_s}, "
               f"bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G int32 ops, "
-              f"{nbytes / 1e6:.1f} MB), {b_ms / ms:.1%} of bound | {card}")
+              f"{nbytes / 1e6:.1f} MB), {b_ms / ms:.1%} of bound, launch "
+              f"floor {floor_ms:.4f} ms | {card}")
         rows.setdefault(name, (ms, plain, b_ms, b_by))
-    del kul
     torch.cuda.empty_cache()
     for n, world in ((N_C4, 256), (N_C4, 8), (N_LLAMA, 256), (N_LLAMA, 8)):
         fn = lambda n=n, w=world: pt.epoch_indices_cuda(n, W, 0, 1, 5 % w, w)
         dev_ms = gpu_ms(fn, 20 if world == 256 else 5)
-        walls = []
-        for _ in range(20 if world == 256 else 5):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
+        walls = host_walls(fn, 20 if world == 256 else 5)
         line = (f"regen per epoch n={n:.0e} W=8192 world={world}: device "
-                f"{dev_ms:.4f} ms (2 launches), host wall to ready "
+                f"{dev_ms:.4f} ms (1 launch), host wall to ready "
                 f"median {float(np.median(walls)):.4f} ms min "
                 f"{min(walls):.4f} ms")
         if world == 256:
@@ -1337,7 +1439,6 @@ def main() -> None:
                 n, W, None, None, 5, 256, triple=t3), 20)
             line += f", device triple {tri_ms:.4f} ms"
         print(f"{line} | {card}")
-    del ku
     torch.cuda.empty_cache()
 
     # the mixture kernels: M1 at world 256 / 32 / 8, M2, M3
@@ -1397,12 +1498,7 @@ def main() -> None:
             s, 0, 1, 5 % w, w, epoch_samples=es)
         reps = 5 if world == 8 else 20
         dev_ms = gpu_ms(fn, reps)
-        walls = []
-        for _ in range(reps):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
+        walls = host_walls(fn, reps)
         line = (f"mixture regen per epoch {label} world={world}: device "
                 f"{dev_ms:.4f} ms (2 launches), host wall to ready median "
                 f"{float(np.median(walls)):.4f} ms min {min(walls):.4f} ms")
@@ -1449,9 +1545,13 @@ def main() -> None:
                 sids, tabs.dev_sizes, 0, 1, full=True, w=0), 5)
             b_ms, b_by = bound(rows_n * (ROW_BASE_OPS + 2 * 24 * ROW_KEY_OPS),
                                rows_n * (4 + 8 + 4 * words))
+            # the stores alone: a PyTorch fill of the same table
+            fill = gpu_ms(rowtab.zero_, 50)
             print(f"time shard_row_keys {tag}: kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}; "
-                  f"{rows_n} rows), {b_ms / ms:.1%} of bound | {card}")
+                  f"{rows_n} rows), {b_ms / ms:.1%} of bound, launch floor "
+                  f"{floor_ms:.4f} ms, zero_ of its {rowtab.numel() * 4 / 1e6:.1f}"
+                  f" MB table {fill:.4f} ms | {card}")
             rows.setdefault("shard_row_keys", (ms, plain, b_ms, b_by))
         body, tail, seq = shard_work(sizes, sids, wss)
         lane = SHARD_LANE_OPS + (0 if ends is None else SEARCH_STEP_OPS
@@ -1490,14 +1590,9 @@ def main() -> None:
                                                 rank=5 % world)
         fn = lambda sm=sampler, sz=sizes: sm.device_epoch_indices(sz)
         reps = 20 if world == 8 else 5
-        walls = []
-        for _ in range(reps):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
+        walls = host_walls(fn, reps)
         line = (f"shard regen per epoch {label} world={world} (shard ids + "
-                f"expansion, 4 launches): host wall to ready median "
+                f"expansion, 3 launches): host wall to ready median "
                 f"{float(np.median(walls)):.4f} ms min {min(walls):.4f} ms")
         if label == "S1":  # mixed sizes read the epoch length back
             line = line.replace(": host", f": device "
@@ -1506,17 +1601,19 @@ def main() -> None:
     print("library call: none (no single PyTorch call computes this law or "
           "the mixture's or §7's; torch.randperm is a different function)")
 
+    # the amortized kernels compute the window order too (ops/xla.py:58,
+    # _window_order_ids, XLA there)
     replaces = {
-        "window_order_ids":
-            "partiallyshuffledistributedsampler_tpu/ops/xla.py:58",
         "index_general":
             "partiallyshuffledistributedsampler_tpu/ops/pallas_kernel.py:75",
         "index_amortized":
-            "partiallyshuffledistributedsampler_tpu/ops/pallas_kernel.py:161",
+            "partiallyshuffledistributedsampler_tpu/ops/pallas_kernel.py:161"
+            " + partiallyshuffledistributedsampler_tpu/ops/xla.py:58",
         "index_general_wide":
             "partiallyshuffledistributedsampler_tpu/ops/core.py:527",
         "index_amortized_wide":
-            "partiallyshuffledistributedsampler_tpu/ops/xla.py:87",
+            "partiallyshuffledistributedsampler_tpu/ops/xla.py:87"
+            " + partiallyshuffledistributedsampler_tpu/ops/xla.py:58",
         "mixture_source_keys":
             "partiallyshuffledistributedsampler_tpu/ops/mixture.py:534",
         "mixture_fused":

@@ -1,12 +1,7 @@
 // Hand-written CUDA kernels for the epoch-index law (SPEC.md) on Hopper.
 //
-// Five kernels over the law's __device__ functions in law.cuh:
+// Four kernels over the law's __device__ functions in law.cuh:
 //
-//   window_order_ids      -> replaces the window-order pre-pass
-//                            partiallyshuffledistributedsampler_tpu/ops/xla.py
-//                            _window_order_ids (XLA there, not Pallas): one
-//                            thread per window slot j writes
-//                            ku[j] = swap_or_not(j, nw, outer_key(ek)).
 //   index_general         -> replaces the Pallas kernel
 //                            partiallyshuffledistributedsampler_tpu/ops/
 //                            pallas_kernel.py _index_kernel: one thread per
@@ -14,11 +9,16 @@
 //   index_amortized       -> replaces the Pallas kernel
 //                            partiallyshuffledistributedsampler_tpu/ops/
 //                            pallas_kernel.py _amortized_kernel (+ its
-//                            _expand_window_ids): body lanes read their source
-//                            window ku[t / m] straight from global memory and
-//                            run only the inner bijection; lanes t >= body
-//                            (tail window, wrap padding) take the general law
-//                            in the same launch.
+//                            _expand_window_ids) together with the
+//                            window-order pre-pass that feeds it there,
+//                            ops/xla.py _window_order_ids (XLA, not Pallas):
+//                            one launch per regen.  A block takes a tile of
+//                            body lanes, computes the source windows of the
+//                            slots they span, swap_or_not(j, nw,
+//                            outer_key(ek)), into shared memory, and each
+//                            lane then runs only the inner bijection; lanes
+//                            t >= body (tail window, wrap padding) take the
+//                            general law in the same launch.
 //   index_general_wide    -> the same two kernel bodies for index spaces
 //   index_amortized_wide     n >= 2^31, int64 output.  They replace XLA code
 //                            of the JAX package (its Pallas kernels stop at
@@ -48,16 +48,36 @@
 // `rounds` (24) rounds of ~18 int32 operations per element (add, wrap
 // compare/subtract/select, max, two xors, the 8-operation mix32, bit test
 // and select); the general law runs two bijections per element, the
-// amortized one.  Each element writes 4 bytes (8 in the wide forms) and
-// reads none (the amortized kernel reads 4 bytes per m elements).  The
-// design follows from that: no input tiles, no shared-memory staging of
-// data, one lane per thread with a grid-stride loop; the only shared memory
-// holds the per-round pairing constants K_r = mix32(pair ^ r*GOLDEN) mod m,
-// which depend on scalars only and are computed once per block (at most 3
-// schedules x 64 rounds), never per element.  Division and modulo by the
-// runtime m, W and n are plain `/` and `%` (in uint64 for wide positions,
-// a software sequence on the GPU); fast-divmod magic numbers are a known
-// next step.
+// amortized one plus one outer bijection per window slot (nw per regen).
+// Each element writes 4 bytes (8 in the wide forms) and reads none.  The
+// design follows from that: no input tiles, one lane per thread with a
+// grid-stride loop (tile-stride in the amortized kernels); shared memory
+// holds the per-round pairing constants K_r
+// = mix32(pair ^ r*GOLDEN) mod m, which depend on scalars only and are
+// computed once per block (at most 3 schedules x 64 rounds), never per
+// element, and in the amortized kernels the window ids of the block's
+// current tile.
+//
+// The amortized tile.  Its TILE_MAX + 2 ids (16 KB) beside the schedules
+// (768 B) leave room for 8 resident blocks per SM.  A tile of lanes [a, b)
+// spans the slots a/m .. (b-1)/m; the block computes those ids, waits at a
+// barrier, runs the tile's lanes, and waits again before the next tile.  A
+// slot cut by a tile edge is computed by both tiles: at most one bijection
+// more per tile, against the nw*4 bytes of a separate pre-pass written and
+// read back and its launch (a bound under the launch time).  The tile is
+// not fixed: the launch takes tile = num_samples / resident blocks, rounded
+// up to a warp and capped at TILE_MAX, so a regen of fewer than TILE_MAX *
+// resident blocks lanes is one tile per block, and every SM gets the lanes
+// the grid-stride loop would give it.  (Rounded up to THREADS instead, the
+// tiles of the 1B/world-256 regen were 3840 lanes and some SMs held 8 of
+// them against 7 on others, which was slower in trials on the H100; a
+// fixed 4096-lane tile leaves the same imbalance.  2 to 16 tiles per block
+// were slower too: each tile's ids are computed while the block's other
+// warps wait.)
+//
+// Division and modulo by the runtime m, W and n are plain `/` and `%` (in
+// uint64 for wide positions, a software sequence on the GPU); fast-divmod
+// magic numbers are a known next step.
 //
 // Every operation keeps the order of ops/core.py (law.cuh), and the index
 // clips of the window id and the tail offset.
@@ -153,19 +173,9 @@ __device__ __forceinline__ void load_schedules(Schedules &s,
   load_round_keys(s.tail, k.tkey, P.tail_len, P.rounds);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    window_order_ids_kernel(uint32_t *__restrict__ ku, LawParams P,
-                            const uint32_t *__restrict__ seeds) {
-  __shared__ uint32_t ks[MAX_ROUNDS];
-  const Keys k = make_keys(P, seeds);
-  load_round_keys(ks, k.okey, P.nw, P.rounds);
-  __syncthreads();
-  const bool permute = P.order_windows && P.nw > 1;
-  const uint32_t stride = gridDim.x * blockDim.x;
-  for (uint32_t j = blockIdx.x * blockDim.x + threadIdx.x; j < P.nw;
-       j += stride)
-    ku[j] = permute ? swap_or_not(j, P.nw, ks, k.okey, P.rounds) : j;
-}
+// Lanes of an amortized tile: at most TILE_MAX, a multiple of WARP.
+constexpr uint32_t TILE_MAX = 4096;
+constexpr uint32_t WARP = 32;
 
 // Pos is also the lane counter: uint64 where num_samples may pass 2^32.
 template <typename Pos, typename Out>
@@ -187,33 +197,50 @@ __global__ void __launch_bounds__(THREADS)
 
 // Strided, shuffled, window % world == 0, nw >= 1: lane t < body = nw * m
 // sits in output window slot t / m at in-window offset
-// rank + world * (t % m), so its source window is ku[t / m] and only the
-// inner bijection remains per element.  num_samples < 2^31 (the gate).
+// rank + world * (t % m), so its source window is the outer bijection of
+// slot t / m, computed once per tile into `kid`, and only the inner
+// bijection remains per element.  num_samples < 2^31 (the gate), `tile` a
+// multiple of WARP in [WARP, TILE_MAX].
 template <typename Pos, typename Out>
 __global__ void __launch_bounds__(THREADS)
-    index_amortized_kernel(Out *__restrict__ out,
-                           const uint32_t *__restrict__ ku, LawParams P,
-                           uint32_t m, uint32_t body,
+    index_amortized_kernel(Out *__restrict__ out, LawParams P, uint32_t m,
+                           uint32_t body, uint32_t tile,
                            const uint32_t *__restrict__ seeds) {
   __shared__ Schedules s;
+  // window ids of the tile's slots: at most (tile - 1) / m + 2 of them
+  __shared__ uint32_t kid[TILE_MAX + 2];
   const Keys k = make_keys(P, seeds);
   load_schedules(s, P, k);
   __syncthreads();
-  const uint32_t stride = gridDim.x * blockDim.x;
+  const bool permute = P.order_windows && P.nw > 1;
   const uint32_t num_samples = (uint32_t)P.num_samples;
-  for (uint32_t t = blockIdx.x * blockDim.x + threadIdx.x; t < num_samples;
-       t += stride) {
-    Pos v;
-    if (t < body) {
-      const uint32_t slot = t / m;
-      const uint32_t kex = __ldg(ku + slot);
-      const uint32_t r0 = P.rank + P.world * (t % m);
-      v = (Pos)kex * P.window +
-          swap_or_not(r0, P.window, s.inner, inner_key(k.ek, kex), P.rounds);
-    } else {
-      v = windowed_perm<Pos>(stream_position<Pos>((Pos)t, P), P, k, s);
+  // block-uniform loop: every thread reaches the barriers equally often
+  for (uint32_t a = blockIdx.x * tile; a < num_samples;
+       a += gridDim.x * tile) {
+    const uint32_t b = num_samples - a < tile ? num_samples : a + tile;
+    const uint32_t s0 = a / m;
+    if (a < body) {
+      const uint32_t slots = ((b < body ? b : body) - 1) / m - s0 + 1;
+      for (uint32_t j = threadIdx.x; j < slots; j += blockDim.x)
+        kid[j] = permute
+                     ? swap_or_not(s0 + j, P.nw, s.outer, k.okey, P.rounds)
+                     : s0 + j;
     }
-    out[t] = (Out)v;
+    __syncthreads();  // the tile's ids
+    for (uint32_t t = a + threadIdx.x; t < b; t += blockDim.x) {
+      Pos v;
+      if (t < body) {
+        const uint32_t slot = t / m;
+        const uint32_t kex = kid[slot - s0];
+        const uint32_t r0 = P.rank + P.world * (t - slot * m);
+        v = (Pos)kex * P.window + swap_or_not(r0, P.window, s.inner,
+                                              inner_key(k.ek, kex), P.rounds);
+      } else {
+        v = windowed_perm<Pos>(stream_position<Pos>((Pos)t, P), P, k, s);
+      }
+      out[t] = (Out)v;
+    }
+    __syncthreads();  // every lane has read kid before it is overwritten
   }
 }
 
@@ -275,11 +302,11 @@ int launch_general(bool wide, void *out, uint64_t n, uint32_t window,
 }
 
 template <typename Pos, typename Out>
-int launch_amortized(bool wide, void *out, const void *ku, uint64_t n,
-                     uint32_t window, uint32_t world, uint64_t num_samples,
-                     uint32_t rank, uint32_t seed_lo, uint32_t seed_hi,
-                     uint32_t epoch, const void *seeds, int order_windows,
-                     int rounds, void *stream) {
+int launch_amortized(bool wide, void *out, uint64_t n, uint32_t window,
+                     uint32_t world, uint64_t num_samples, uint32_t rank,
+                     uint32_t seed_lo, uint32_t seed_hi, uint32_t epoch,
+                     const void *seeds, int order_windows, int rounds,
+                     void *stream) {
   if (bad_config(n, window, rounds) || bad_width(n, wide) ||
       bad_rank(world, rank, num_samples) || num_samples > INT32_MAX_U ||
       window % world != 0 || n / window == 0)
@@ -289,29 +316,19 @@ int launch_amortized(bool wide, void *out, const void *ku, uint64_t n,
                   epoch, 1, order_windows, 1, rounds);
   const uint32_t m = window / world;
   const uint32_t body = P.nw * m;
+  // a tile per resident block where that fits, in whole warps
+  const uint64_t cap = resident_blocks();
+  uint64_t tile = (num_samples + cap - 1) / cap;
+  tile = (tile + WARP - 1) / WARP * WARP;
+  tile = tile < TILE_MAX ? tile : TILE_MAX;
   index_amortized_kernel<Pos, Out>
-      <<<grid_for(num_samples), THREADS, 0, (cudaStream_t)stream>>>(
-          (Out *)out, (const uint32_t *)ku, P, m, body,
-          (const uint32_t *)seeds);
+      <<<grid_cap((num_samples + tile - 1) / tile), THREADS, 0,
+         (cudaStream_t)stream>>>((Out *)out, P, m, body, (uint32_t)tile,
+                                 (const uint32_t *)seeds);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-extern "C" int psds_window_order_ids(void *ku, uint64_t n, uint32_t window,
-                                     uint32_t seed_lo, uint32_t seed_hi,
-                                     uint32_t epoch, const void *seeds,
-                                     int order_windows, int rounds,
-                                     void *stream) {
-  if (bad_config(n, window, rounds) || n / window == 0)
-    return (int)cudaErrorInvalidValue;
-  const LawParams P = make_params(n, window, 1, 0, 0, seed_lo, seed_hi,
-                                  epoch, 1, order_windows, 1, rounds);
-  window_order_ids_kernel<<<grid_for(P.nw), THREADS, 0,
-                            (cudaStream_t)stream>>>(
-      (uint32_t *)ku, P, (const uint32_t *)seeds);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int psds_index_general(void *out, uint64_t n, uint32_t window,
                                   uint32_t world, uint64_t num_samples,
@@ -338,27 +355,25 @@ extern "C" int psds_index_general_wide(void *out, uint64_t n,
       epoch, seeds, shuffle, order_windows, strided, rounds, stream);
 }
 
-extern "C" int psds_index_amortized(void *out, const void *ku, uint64_t n,
-                                    uint32_t window, uint32_t world,
-                                    uint64_t num_samples, uint32_t rank,
-                                    uint32_t seed_lo, uint32_t seed_hi,
-                                    uint32_t epoch, const void *seeds,
-                                    int order_windows, int rounds,
-                                    void *stream) {
+extern "C" int psds_index_amortized(void *out, uint64_t n, uint32_t window,
+                                    uint32_t world, uint64_t num_samples,
+                                    uint32_t rank, uint32_t seed_lo,
+                                    uint32_t seed_hi, uint32_t epoch,
+                                    const void *seeds, int order_windows,
+                                    int rounds, void *stream) {
   return launch_amortized<uint32_t, int32_t>(
-      false, out, ku, n, window, world, num_samples, rank, seed_lo, seed_hi,
+      false, out, n, window, world, num_samples, rank, seed_lo, seed_hi,
       epoch, seeds, order_windows, rounds, stream);
 }
 
-extern "C" int psds_index_amortized_wide(void *out, const void *ku,
-                                         uint64_t n, uint32_t window,
-                                         uint32_t world, uint64_t num_samples,
-                                         uint32_t rank, uint32_t seed_lo,
-                                         uint32_t seed_hi, uint32_t epoch,
-                                         const void *seeds,
+extern "C" int psds_index_amortized_wide(void *out, uint64_t n,
+                                         uint32_t window, uint32_t world,
+                                         uint64_t num_samples, uint32_t rank,
+                                         uint32_t seed_lo, uint32_t seed_hi,
+                                         uint32_t epoch, const void *seeds,
                                          int order_windows, int rounds,
                                          void *stream) {
   return launch_amortized<uint64_t, int64_t>(
-      true, out, ku, n, window, world, num_samples, rank, seed_lo, seed_hi,
+      true, out, n, window, world, num_samples, rank, seed_lo, seed_hi,
       epoch, seeds, order_windows, rounds, stream);
 }

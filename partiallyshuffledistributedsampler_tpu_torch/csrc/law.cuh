@@ -86,15 +86,25 @@ __device__ __forceinline__ uint32_t swap_or_not(uint32_t x, uint32_t m,
   return x;
 }
 
-// Blocks for a grid-stride loop over `count` elements: one per THREADS
-// elements, at most BLOCKS_PER_SM per SM.
-inline unsigned grid_for(uint64_t count) {
+// The resident blocks of the card: BLOCKS_PER_SM per SM.
+inline uint64_t resident_blocks() {
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const uint64_t need = (count + THREADS - 1) / THREADS;
-  const uint64_t cap = (uint64_t)sms * BLOCKS_PER_SM;
-  return (unsigned)(need < cap ? need : cap);
+  return (uint64_t)sms * BLOCKS_PER_SM;
+}
+
+// Blocks for a loop over `blocks` units of block work: one per unit, at
+// most the resident blocks.
+inline unsigned grid_cap(uint64_t blocks) {
+  const uint64_t cap = resident_blocks();
+  return (unsigned)(blocks < cap ? blocks : cap);
+}
+
+// Blocks for a grid-stride loop over `count` elements: one per THREADS
+// elements, at most the resident blocks.
+inline unsigned grid_for(uint64_t count) {
+  return grid_cap((count + THREADS - 1) / THREADS);
 }
 
 }  // namespace

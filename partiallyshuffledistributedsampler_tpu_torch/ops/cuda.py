@@ -6,8 +6,9 @@ kernels of ``ops/cuda_kernel.py``:
 
 * the amortized route (strided, shuffled, ``window % world == 0``, at
   least one full window, and for n >= 2^31 ``ceil(n / world) < 2^31``):
-  ``window_order_ids`` runs the window-order bijection once per window,
-  then ``index_amortized`` runs one bijection per element;
+  one launch of ``index_amortized``, which runs the window-order
+  bijection once per window slot of each tile and one bijection per
+  element;
 * every other config: ``index_general``, the full law per element.
 
 Index spaces n >= 2^31 take the ``_wide`` form of each index kernel and
@@ -60,23 +61,6 @@ def _amortized_applicable(n: int, window: int, world: int, shuffle: bool,
     )
 
 
-def _epoch_indices_amortized(n: int, window: int, seed, epoch, rank: int,
-                             world: int, num_samples: int,
-                             order_windows: bool, rounds: int,
-                             device=None) -> torch.Tensor:
-    """Rank's epoch indices by the plain amortized evaluation (the
-    window-order pre-pass, then one bijection per element).  Same value
-    as ``core.epoch_indices_generic``."""
-    ku = cuda_kernel.window_order_ids_ref(
-        n, window, seed, epoch, order_windows=order_windows, rounds=rounds,
-        device=device,
-    )
-    return cuda_kernel.index_amortized_ref(
-        ku, n, window, seed, epoch, rank, world, num_samples,
-        order_windows=order_windows, rounds=rounds,
-    )
-
-
 def build_evaluator(
     n: int,
     window: int,
@@ -99,9 +83,9 @@ def build_evaluator(
         n, window, world, shuffle, partition
     ):
         def fn(seed, epoch, rank):
-            return _epoch_indices_amortized(
+            return cuda_kernel.epoch_indices_amortized_ref(
                 n, window, seed, epoch, rank, world, num_samples,
-                order_windows, rounds, device,
+                order_windows=order_windows, rounds=rounds, device=device,
             )
     else:
         def fn(seed, epoch, rank):
@@ -157,15 +141,12 @@ def epoch_indices_cuda(
     with torch.profiler.record_function("psds_epoch_regen"):
         if amortize and _amortized_applicable(n, window, world, shuffle,
                                               partition):
-            ku = cuda_kernel.window_order_ids(
-                n, window, seed, epoch, order_windows=order_windows,
-                rounds=rounds, device=device, triple=triple,
-            )
             amortized = (cuda_kernel.index_amortized_wide if wide
                          else cuda_kernel.index_amortized)
             return amortized(
-                ku, n, window, seed, epoch, rank, world, drop_last=drop_last,
-                order_windows=order_windows, rounds=rounds, triple=triple,
+                n, window, seed, epoch, rank, world, drop_last=drop_last,
+                order_windows=order_windows, rounds=rounds, device=device,
+                triple=triple,
             )
         general = (cuda_kernel.index_general_wide if wide
                    else cuda_kernel.index_general)

@@ -1,22 +1,23 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/``.
 
-Nine kernels, each with a wrapper, a plain PyTorch version and a launch
+Eight kernels, each with a wrapper, a plain PyTorch version and a launch
 counter:
 
 ====================  ===================================  ==========================
 wrapper               plain version                        replaces
 ====================  ===================================  ==========================
-window_order_ids      ``window_order_ids_ref``             ``ops/xla.py``
-                                                           ``_window_order_ids``
 index_general         ``index_general_ref``                ``ops/pallas_kernel.py``
                       (= ``core.epoch_indices_generic``)   ``_index_kernel``
-index_amortized       ``index_amortized_ref``              ``ops/pallas_kernel.py``
-                      (the amortized evaluator)            ``_amortized_kernel``
+index_amortized       ``epoch_indices_amortized_ref``      ``ops/pallas_kernel.py``
+                      (``index_amortized_ref`` on          ``_amortized_kernel`` and
+                      ``window_order_ids_ref``)            ``ops/xla.py``
+                                                           ``_window_order_ids``
 index_general_wide    ``index_general_wide_ref``           ``ops/core.py``
                       (= ``core.epoch_indices_generic``)   ``epoch_indices_generic``
                                                            (uint64 positions)
-index_amortized_wide  ``index_amortized_wide_ref``         ``ops/xla.py``
-                      (= ``index_amortized_ref``)          ``_epoch_indices_amortized``
+index_amortized_wide  ``epoch_indices_amortized_ref``      ``ops/xla.py``
+                      (int64 lanes)                        ``_epoch_indices_amortized``
+                                                           and ``_window_order_ids``
 mixture_source_keys   ``mixture_source_keys_ref``          ``ops/mixture.py``
                                                            ``_fused_mixture_eval``
                                                            (its [S] key vectors)
@@ -86,7 +87,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_ROUNDS = 64
 
 #: kernel launches per wrapper (reset with ``reset_launches``)
-launches = {"window_order_ids": 0, "index_general": 0, "index_amortized": 0,
+launches = {"index_general": 0, "index_amortized": 0,
             "index_general_wide": 0, "index_amortized_wide": 0,
             "mixture_source_keys": 0, "mixture_fused": 0,
             "shard_row_keys": 0, "shard_expand": 0}
@@ -182,16 +183,11 @@ def _load(name: str) -> ctypes.CDLL:
         i32, ptr = ctypes.c_int, ctypes.c_void_p
         keys = [u32, u32, u32, ptr]  # seed_lo, seed_hi, epoch, seeds
         if name == "index":
-            fns = (lib.psds_window_order_ids, lib.psds_index_general,
-                   lib.psds_index_general_wide, lib.psds_index_amortized,
-                   lib.psds_index_amortized_wide)
-            lib.psds_window_order_ids.argtypes = [
-                ptr, u64, u32, *keys, i32, i32, ptr,
-            ]
+            fns = (lib.psds_index_general, lib.psds_index_general_wide,
+                   lib.psds_index_amortized, lib.psds_index_amortized_wide)
             general = [ptr, u64, u32, u32, u64, u32, *keys, i32, i32, i32,
                        i32, ptr]
-            amortized = [ptr, ptr, u64, u32, u32, u64, u32, *keys, i32, i32,
-                         ptr]
+            amortized = [ptr, u64, u32, u32, u64, u32, *keys, i32, i32, ptr]
             lib.psds_index_general.argtypes = general
             lib.psds_index_general_wide.argtypes = general
             lib.psds_index_amortized.argtypes = amortized
@@ -341,39 +337,25 @@ def index_amortized_ref(ku: torch.Tensor, n: int, window: int, seed, epoch,
     return idx[:num_samples].to(core.out_dtype(n))
 
 
-#: the amortized evaluation for n >= 2^31: the same function, whose
-#: combine ``kex * window + rho`` and tail positions are int64 lanes
-index_amortized_wide_ref = index_amortized_ref
+def epoch_indices_amortized_ref(n: int, window: int, seed, epoch, rank: int,
+                                world: int, num_samples: int, *,
+                                order_windows: bool = True,
+                                rounds: int = core.DEFAULT_ROUNDS,
+                                device=None) -> torch.Tensor:
+    """The whole plain amortized evaluation on ``device``, what one launch
+    of ``index_amortized(_wide)`` computes: the window-order ids
+    (``window_order_ids_ref``), then one bijection per element
+    (``index_amortized_ref``).  Same value as
+    ``core.epoch_indices_generic``."""
+    ku = window_order_ids_ref(n, window, seed, epoch,
+                              order_windows=order_windows, rounds=rounds,
+                              device=device)
+    return index_amortized_ref(ku, n, window, seed, epoch, rank, world,
+                               num_samples, order_windows=order_windows,
+                               rounds=rounds)
 
 
 # ---------------------------------------------------------------- kernels
-def window_order_ids(n: int, window: int, seed, epoch, *,
-                     order_windows: bool = True,
-                     rounds: int = core.DEFAULT_ROUNDS,
-                     device="cuda", triple=None) -> torch.Tensor:
-    """``ku`` for the amortized kernels: int32[n // window] on CUDA (the
-    ids are below 2^31, for any n), int64 from the plain version on the
-    CPU."""
-    seed_p, epoch_p = _plain_keys(seed, epoch, triple)
-    if device_kind(device) == "cpu":
-        return window_order_ids_ref(n, window, seed_p, epoch_p,
-                                    order_windows=order_windows,
-                                    rounds=rounds, device=device)
-    _check_kernel_args(n, window, 1, rounds, core.is_wide(n))
-    if n // window < 1:
-        raise ValueError(f"window {window} > n {n}: no full window to order")
-    lib = _load("index")
-    ku = torch.empty(n // window, dtype=torch.int32, device=device)
-    lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, ku.device)
-    stream = torch.cuda.current_stream(ku.device).cuda_stream
-    launches["window_order_ids"] += 1
-    _check("window_order_ids", lib.psds_window_order_ids(
-        ku.data_ptr(), n, window, lo, hi, ep, seeds,
-        int(bool(order_windows)), rounds, stream,
-    ))
-    return ku
-
-
 def _general(wide: bool, n: int, window: int, seed, epoch, rank: int,
              world: int, *, shuffle: bool, drop_last: bool,
              order_windows: bool, partition: str, rounds: int, device,
@@ -436,9 +418,9 @@ def index_general_wide(n: int, window: int, seed, epoch, rank: int,
                     rounds=rounds, device=device, triple=triple)
 
 
-def _amortized(wide: bool, ku: torch.Tensor, n: int, window: int, seed,
-               epoch, rank: int, world: int, *, drop_last: bool,
-               order_windows: bool, rounds: int, triple) -> torch.Tensor:
+def _amortized(wide: bool, n: int, window: int, seed, epoch, rank: int,
+               world: int, *, drop_last: bool, order_windows: bool,
+               rounds: int, device, triple) -> torch.Tensor:
     name = "index_amortized_wide" if wide else "index_amortized"
     num_samples, _ = core.shard_sizes(n, world, drop_last)
     if not (window % world == 0 and n // window >= 1):
@@ -446,65 +428,56 @@ def _amortized(wide: bool, ku: torch.Tensor, n: int, window: int, seed,
             f"the amortized law needs window % world == 0 and n >= window "
             f"(n={n}, window={window}, world={world})"
         )
-    if ku.shape != (n // window,):
-        raise ValueError(
-            f"ku must hold n // window = {n // window} ids, got shape "
-            f"{tuple(ku.shape)}"
-        )
     seed_p, epoch_p = _plain_keys(seed, epoch, triple)
-    if device_kind(ku.device) == "cpu":
+    if device_kind(device) == "cpu":
         _check_width(n, wide)
-        return index_amortized_ref(ku, n, window, seed_p, epoch_p, rank,
-                                   world, num_samples,
-                                   order_windows=order_windows,
-                                   rounds=rounds)
+        return epoch_indices_amortized_ref(
+            n, window, seed_p, epoch_p, rank, world, num_samples,
+            order_windows=order_windows, rounds=rounds, device=device)
     _check_kernel_args(n, window, world, rounds, wide)
     if num_samples > core.INT32_MAX:
         raise ValueError(
             f"the amortized kernels take ceil(n / world) < 2^31, got "
             f"{num_samples} lanes: use the general kernel"
         )
-    if ku.dtype != torch.int32 or not ku.is_contiguous():
-        raise ValueError("ku must be a contiguous int32 tensor")
     if not 0 <= rank < world:
         raise ValueError(f"rank must be in [0, {world}), got {rank}")
     lib = _load("index")
-    out = torch.empty(num_samples, dtype=core.out_dtype(n), device=ku.device)
-    lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, ku.device)
-    stream = torch.cuda.current_stream(ku.device).cuda_stream
+    out = torch.empty(num_samples, dtype=core.out_dtype(n), device=device)
+    lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
     fn = lib.psds_index_amortized_wide if wide else lib.psds_index_amortized
     launches[name] += 1
     _check(name, fn(
-        out.data_ptr(), ku.data_ptr(), n, window, world, num_samples, rank,
-        lo, hi, ep, seeds, int(bool(order_windows)), rounds, stream,
+        out.data_ptr(), n, window, world, num_samples, rank, lo, hi, ep,
+        seeds, int(bool(order_windows)), rounds, stream,
     ))
     return out
 
 
-def index_amortized(ku: torch.Tensor, n: int, window: int, seed, epoch,
-                    rank: int, world: int, *, drop_last: bool = False,
-                    order_windows: bool = True,
-                    rounds: int = core.DEFAULT_ROUNDS,
+def index_amortized(n: int, window: int, seed, epoch, rank: int, world: int,
+                    *, drop_last: bool = False, order_windows: bool = True,
+                    rounds: int = core.DEFAULT_ROUNDS, device="cuda",
                     triple=None) -> torch.Tensor:
-    """Rank's epoch indices by the amortized law from the window-order ids
-    ``ku`` (``window_order_ids``): int32[num_samples] on ``ku``'s device,
-    for n < 2^31.  Takes only strided, shuffled configs with
-    ``window % world == 0`` and at least one full window."""
-    return _amortized(False, ku, n, window, seed, epoch, rank, world,
+    """Rank's epoch indices by the amortized law, the window order and the
+    elements in one launch: int32[num_samples], for n < 2^31.  Takes only
+    strided, shuffled configs with ``window % world == 0`` and at least
+    one full window."""
+    return _amortized(False, n, window, seed, epoch, rank, world,
                       drop_last=drop_last, order_windows=order_windows,
-                      rounds=rounds, triple=triple)
+                      rounds=rounds, device=device, triple=triple)
 
 
-def index_amortized_wide(ku: torch.Tensor, n: int, window: int, seed, epoch,
-                         rank: int, world: int, *, drop_last: bool = False,
+def index_amortized_wide(n: int, window: int, seed, epoch, rank: int,
+                         world: int, *, drop_last: bool = False,
                          order_windows: bool = True,
-                         rounds: int = core.DEFAULT_ROUNDS,
+                         rounds: int = core.DEFAULT_ROUNDS, device="cuda",
                          triple=None) -> torch.Tensor:
     """``index_amortized`` for n >= 2^31: int64[num_samples], with
     ceil(n / world) < 2^31."""
-    return _amortized(True, ku, n, window, seed, epoch, rank, world,
+    return _amortized(True, n, window, seed, epoch, rank, world,
                       drop_last=drop_last, order_windows=order_windows,
-                      rounds=rounds, triple=triple)
+                      rounds=rounds, device=device, triple=triple)
 
 
 # ---------------------------------------------------------------- mixture

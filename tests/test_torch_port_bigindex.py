@@ -98,9 +98,8 @@ def test_wide_routes_match_jax_x64(cid, n, window, world, rank, kw,
                               device="cpu", **kw).numpy(), want)
     if cuda._amortized_applicable(n, window, world, True,
                                   kw.get("partition", "strided")):
-        ku = ck.window_order_ids(n, window, SEED, EPOCH, device="cpu")
-        got = ck.index_amortized_wide(ku, n, window, SEED, EPOCH, rank,
-                                      world, **kw)
+        got = ck.index_amortized_wide(n, window, SEED, EPOCH, rank, world,
+                                      device="cpu", **kw)
         np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -150,12 +149,10 @@ def test_wide_and_narrow_wrappers_refuse_the_other_width():
         ck.index_general(TEN_B, 8192, 0, 0, 0, 8192, device="cpu")
     with pytest.raises(ValueError, match="narrow"):
         ck.index_general_wide(10**6, 8192, 0, 0, 0, 8, device="cpu")
-    ku = ck.window_order_ids(TEN_B, 8192, 0, 0, device="cpu")
     with pytest.raises(ValueError, match="wide"):
-        ck.index_amortized(ku, TEN_B, 8192, 0, 0, 0, 8192)
-    ku = ck.window_order_ids(10**6, 8192, 0, 0, device="cpu")
+        ck.index_amortized(TEN_B, 8192, 0, 0, 0, 8192, device="cpu")
     with pytest.raises(ValueError, match="narrow"):
-        ck.index_amortized_wide(ku, 10**6, 8192, 0, 0, 0, 8)
+        ck.index_amortized_wide(10**6, 8192, 0, 0, 0, 8, device="cpu")
 
 
 def test_amortized_gate_in_the_wide_regime():

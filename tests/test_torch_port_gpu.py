@@ -73,18 +73,57 @@ def test_amortized_kernels_match_plain_versions(n, window, world):
     ck.reset_launches()
     ns, _ = core.shard_sizes(n, world, False)
     for rank in (0, world - 1):
-        ku = ck.window_order_ids(n, window, 5, 9)
-        assert torch.equal(ku.long(), ck.window_order_ids_ref(
-            n, window, 5, 9, device="cuda"))
-        got = ck.index_amortized(ku, n, window, 5, 9, rank, world)
-        assert torch.equal(got, ck.index_amortized_ref(
-            ku, n, window, 5, 9, rank, world, ns))
+        got = ck.index_amortized(n, window, 5, 9, rank, world)
+        assert torch.equal(got, ck.epoch_indices_amortized_ref(
+            n, window, 5, 9, rank, world, ns, device="cuda"))
         np.testing.assert_array_equal(
             got.cpu().numpy(), jcpu.epoch_indices_np(n, window, 5, 9, rank,
                                                      world))
-    assert ck.launches["window_order_ids"] == 2
+    # one launch per regen: the window order is computed in the kernel
     assert ck.launches["index_amortized"] == 2
-    assert ck.launches["index_general"] == 0
+    assert sum(ck.launches.values()) == 2
+
+
+N31 = 2**31 + 5000
+#: (n, window, world, law kwargs) at the fused amortized kernel's tile
+#: edges: m = 1, m above TILE_MAX (one tile inside a slot), slots cut by
+#: tile edges (m = 75; m = 3), the largest tile (10M lanes), one window,
+#: no window order, drop_last, tail and wrap-padding lanes, 64 rounds, and
+#: a wide shape
+FUSED_CASES = [
+    (200_000, 64, 64, {}),
+    (100_000, 8192, 1, {}),
+    (10_000_000, 8192, 1, {}),
+    (1_000_003, 600, 8, {}),
+    (3_000_001, 96, 32, {}),
+    (10_000_000, 4096, 1024, {}),
+    (5000, 4096, 4, {}),
+    (500_000, 512, 8, dict(order_windows=False)),
+    (500_003, 512, 8, dict(drop_last=True)),
+    (500_003, 512, 8, dict(rounds=64)),
+    (N31, 8192, 4096, {}),
+]
+
+
+@pytest.mark.parametrize("n,window,world,kw", FUSED_CASES)
+def test_fused_amortized_kernel_at_tile_edges(n, window, world, kw):
+    wide = core.is_wide(n)
+    amortized = ck.index_amortized_wide if wide else ck.index_amortized
+    general = ck.index_general_wide if wide else ck.index_general
+    ns, _ = core.shard_sizes(n, world, kw.get("drop_last", False))
+    plain_kw = {k: v for k, v in kw.items() if k != "drop_last"}
+    for rank in sorted({0, world // 2, world - 1}):
+        ck.reset_launches()
+        got = amortized(n, window, 7, 2, rank, world, **kw)
+        assert sum(ck.launches.values()) == 1
+        assert got.dtype == core.out_dtype(n) and got.numel() == ns
+        assert torch.equal(got, ck.epoch_indices_amortized_ref(
+            n, window, 7, 2, rank, world, ns, device="cuda", **plain_kw))
+        assert torch.equal(got, general(n, window, 7, 2, rank, world, **kw))
+        if ns <= 200_000:
+            np.testing.assert_array_equal(
+                got.cpu().numpy(),
+                jcpu.epoch_indices_np(n, window, 7, 2, rank, world, **kw))
 
 
 def test_goldens_on_gpu():
@@ -100,9 +139,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ck.index_general(1000, 64, 0, 0, 0, 2, rounds=65, device="cuda")
     with pytest.raises(ValueError, match="window"):
         ck.index_general(1000, 2**32 + 5, 0, 0, 0, 2, device="cuda")
-    with pytest.raises(ValueError, match="int32"):
-        ck.index_amortized(torch.zeros(3, dtype=torch.int64, device="cuda"),
-                           1000, 256, 0, 0, 0, 2)
+    with pytest.raises(ValueError, match="rank"):
+        ck.index_amortized(1000, 256, 0, 0, 2, 2)
+    with pytest.raises(ValueError, match="rounds"):
+        ck.index_amortized(1000, 256, 0, 0, 0, 2, rounds=65)
 
 
 def test_sampler_and_iterator_on_gpu():
@@ -120,7 +160,6 @@ def test_sampler_and_iterator_on_gpu():
 
 
 TEN_B = 10_000_000_000
-N31 = 2**31 + 5000
 #: (n, window, world, rank, law kwargs) of the wide kernels (n >= 2^31)
 WIDE_CASES = [
     (N31, 8192, 8192, 4999, {}),                  # m = 1, one tail lane
@@ -150,10 +189,10 @@ def test_wide_kernels_match_numpy_reference(n, window, world, rank, kw):
 def test_wide_kernels_match_plain_versions_at_world_256():
     """The config-5 shard, 39,062,500 lanes, on every lane."""
     ns, _ = core.shard_sizes(TEN_B, 256, False)
-    ku = ck.window_order_ids(TEN_B, 8192, 0, 1)
-    want = ck.index_amortized_wide_ref(ku, TEN_B, 8192, 0, 1, 255, 256, ns)
-    assert torch.equal(ck.index_amortized_wide(ku, TEN_B, 8192, 0, 1, 255,
-                                               256), want)
+    want = ck.epoch_indices_amortized_ref(TEN_B, 8192, 0, 1, 255, 256, ns,
+                                          device="cuda")
+    assert torch.equal(ck.index_amortized_wide(TEN_B, 8192, 0, 1, 255, 256),
+                       want)
     assert torch.equal(ck.index_general_wide(TEN_B, 8192, 0, 1, 255, 256),
                        want)
     assert int(want.max()) > 2**31
@@ -172,19 +211,20 @@ def test_device_triple_matches_scalar_launches(n, window, world):
     wide = core.is_wide(n)
     general = ck.index_general_wide if wide else ck.index_general
     amortized = ck.index_amortized_wide if wide else ck.index_amortized
-    ku = ck.window_order_ids(n, window, seed, epoch)
-    ku_t = ck.window_order_ids(n, window, None, None, triple=t)
-    assert torch.equal(ku, ku_t)
     for rank in (0, world - 1):
         want = general(n, window, seed, epoch, rank, world)
         assert torch.equal(general(n, window, None, None, rank, world,
                                    triple=t), want)
-        assert torch.equal(amortized(ku_t, n, window, None, None, rank,
-                                     world, triple=t), want)
+        assert torch.equal(amortized(n, window, None, None, rank, world,
+                                     triple=t), want)
+        assert torch.equal(amortized(n, window, seed, epoch, rank, world),
+                           want)
         assert torch.equal(cuda.epoch_indices_cuda(
             n, window, None, None, rank, world, triple=t), want)
     with pytest.raises(ValueError, match="triple"):
         general(n, window, seed, epoch, 0, world, triple=t)
+    with pytest.raises(ValueError, match="triple"):
+        amortized(n, window, seed, epoch, 0, world, triple=t)
     with pytest.raises(ValueError, match="int32"):
         general(n, window, None, None, 0, world, triple=t.long())
 
@@ -404,6 +444,42 @@ def test_shard_device_triple_matches_scalars():
         want = shard_mode.expand_shard_indices_cuda(
             ids, sizes, seed=seed, epoch=epoch, within_shard_shuffle=wss)
         assert torch.equal(got, want)
+
+
+#: (rows, rounds) of shard_row_keys, whose blocks take 32 rows each and
+#: whose threads write runs of 4 constants (16-byte stores when rounds % 4
+#: == 0): fewer rows than a block, a block and one more row, a ragged last
+#: block, the S1/world-8 row count, and rounds 0, 1, 2, 6, 24 and 64
+ROW_KEY_CASES = [(1, 24), (31, 2), (33, 1), (1000, 0), (257, 6),
+                 (4097, 64), (12_500, 24)]
+
+
+@pytest.mark.parametrize("rows,rounds", ROW_KEY_CASES)
+def test_shard_row_keys_word_for_word(rows, rounds):
+    rng = np.random.default_rng(rows + rounds)
+    sizes = rng.integers(0, 3000, 2 * rows + 7)
+    sizes[::5] = 0  # zero-size shards
+    sizes[1::7] = 1
+    tabs = S.shard_tables(sizes, "cuda")
+    sids = torch.from_numpy(
+        rng.permutation(sizes.size)[:rows].astype(np.int32)).cuda()
+    seed, epoch = (1 << 40) + 0xFFFFFFF7, 0xFFFFFFF0
+    t = _triple(seed, epoch)
+    for wss in (True, 64, 1, False):
+        full, w = S.shuffle_mode(wss)
+        want, m_want = ck.shard_row_keys_ref(sids, tabs.dev_sizes, seed,
+                                             epoch, full=full, w=w,
+                                             rounds=rounds)
+        ck.reset_launches()
+        got, m_of = ck.shard_row_keys(sids, tabs, seed, epoch, full=full,
+                                      w=w, rounds=rounds, sizes_out=True)
+        got_t, no_sizes = ck.shard_row_keys(sids, tabs, None, None,
+                                            full=full, w=w, rounds=rounds,
+                                            triple=t)
+        assert ck.launches["shard_row_keys"] == 2
+        assert got.numel() == rows * S.row_words(rounds)
+        assert torch.equal(got, want) and torch.equal(got_t, want)
+        assert torch.equal(m_of, m_want) and no_sizes is None
 
 
 def test_shard_sampler_device_epoch_indices_on_gpu():

@@ -100,14 +100,44 @@ def test_index_amortized_ref_matches_pallas_amortized_kernel(n, window,
         for epoch in (0, 9):
             want = np.asarray(xla.epoch_indices_jax(
                 n, window, 5, epoch, rank, world, use_pallas=True))
-            ku = ck.window_order_ids(n, window, 5, epoch, device="cpu")
+            ku = ck.window_order_ids_ref(n, window, 5, epoch)
             ns, _ = core.shard_sizes(n, world, False)
             got = ck.index_amortized_ref(ku, n, window, 5, epoch, rank,
                                          world, ns)
             np.testing.assert_array_equal(got.numpy(), want)
+            # the wrapper of the one-launch kernel routes a CPU device to
+            # the whole plain evaluation
             np.testing.assert_array_equal(
-                ck.index_amortized(ku, n, window, 5, epoch, rank,
-                                   world).numpy(), want)
+                ck.index_amortized(n, window, 5, epoch, rank, world,
+                                   device="cpu").numpy(), want)
+
+
+#: the fused amortized kernel's tile edges (csrc/index_kernels.cu): m = 1,
+#: m above any tile, slots cut by tile edges, one window, no window order,
+#: drop_last, tail and wrap-padding lanes
+TILE_EDGE_SHAPES = [
+    (200_000, 64, 64, {}),                         # m = 1
+    (100_000, 8192, 1, {}),                        # m = 8192
+    (1_000_003, 600, 8, {}),                       # m = 75
+    (5000, 4096, 4, {}),                           # nw = 1
+    (50_000, 512, 8, dict(order_windows=False)),
+    (50_003, 512, 8, dict(drop_last=True)),
+    (50_003, 512, 8, dict(rounds=5)),              # 37 tail/padding lanes
+]
+
+
+@pytest.mark.parametrize("n,window,world,kw", TILE_EDGE_SHAPES)
+def test_index_amortized_wrapper_on_cpu_matches_numpy(n, window, world, kw):
+    """The CPU route of the one-launch wrapper (its plain version) at the
+    shapes the card tests hold the kernel at, against the JAX package's
+    numpy reference."""
+    assert cuda._amortized_applicable(n, window, world, True, "strided")
+    for rank in (0, world - 1):
+        got = ck.index_amortized(n, window, 3, 4, rank, world, device="cpu",
+                                 **kw)
+        np.testing.assert_array_equal(
+            got.numpy(), jcpu.epoch_indices_np(n, window, 3, 4, rank, world,
+                                               **kw))
 
 
 @pytest.mark.parametrize("n,window,order_windows", [
@@ -181,7 +211,7 @@ def test_cpu_routing_launches_no_kernel():
     cuda.epoch_indices_cuda(4096, 256, 0, 0, 0, 8, device="cpu",
                             amortize=False)
     expand_shard_indices_cuda([2, 0, 3], [5, 0, 7, 3, 4], device="cpu")
-    assert ck.launches == {"window_order_ids": 0, "index_general": 0,
+    assert ck.launches == {"index_general": 0,
                            "index_amortized": 0, "index_general_wide": 0,
                            "index_amortized_wide": 0,
                            "mixture_source_keys": 0, "mixture_fused": 0,
@@ -195,7 +225,9 @@ def test_cuda_path_raises_named_error_without_gpu(no_gpu):
     with pytest.raises(ck.CudaUnavailableError):
         cuda.epoch_indices_cuda(1000, 64, 42, 3, 1, 4, amortize=False)
     with pytest.raises(ck.CudaUnavailableError):
-        ck.window_order_ids(1000, 64, 0, 0)
+        ck.index_amortized(1000, 64, 0, 0, 0, 2)
+    with pytest.raises(ck.CudaUnavailableError):
+        ck.index_amortized_wide(2**31 + 5000, 8192, 0, 0, 0, 8)
     with pytest.raises(ck.CudaUnavailableError):
         ensure_index_backend("cuda")
     with pytest.raises(ck.CudaUnavailableError):
@@ -223,11 +255,9 @@ def test_refusals_on_every_machine():
     with pytest.raises(ValueError, match="device"):
         ck.index_general(100, 10, 0, 0, 0, 2, device="meta")
     with pytest.raises(ValueError, match="window % world"):
-        ck.index_amortized(torch.zeros(1, dtype=torch.int64), 100, 100, 0,
-                           0, 0, 3)
-    with pytest.raises(ValueError, match="ku must hold"):
-        ck.index_amortized(torch.zeros(3, dtype=torch.int64), 100, 10, 0,
-                           0, 0, 2)
+        ck.index_amortized(100, 100, 0, 0, 0, 3, device="cpu")
+    with pytest.raises(ValueError, match="n >= window"):
+        ck.index_amortized(100, 200, 0, 0, 0, 2, device="cpu")
     for backend in ("native", "xla"):
         with pytest.raises(ValueError,
                            match="partiallyshuffledistributedsampler_tpu"):
