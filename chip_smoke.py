@@ -53,11 +53,22 @@ plain version and its bound.  Every failure exits non-zero.
   memory and writes their records four words per thread, coalesced.  The
   timings print the launch floor beside them, and a fill of the same
   table beside ``shard_row_keys``.
+* Slice 6: every kernel family takes rounds above 64 (65, 102, 121 and
+  the limit ``MAX_ROUNDS``, each held against its plain version; phase
+  3e); ``shard_expand`` walks lane tiles with their rows staged in shared
+  memory, and sequential mode is a copy that needs no ``shard_row_keys``
+  (its tile edges are held in phase 3d); ``mixture_fused`` derives the keys
+  of a small spec itself, so an M1/M2/M3 regen is one launch and
+  ``mixture_source_keys`` runs only for the 300-source spec (on the
+  slice-3 main path too), and phase 6 times the two routes over growing
+  source counts; the elastic remainder regen is timed beside the kernel
+  regen at 1B and 10B, world 256.
 
 ``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
-the ``shard_row_keys`` times, the launches per regen and a digest of each
-output, through entry points that earlier trees share: run it as a copy
-inside an older checkout to time that tree's route on the same card.
+the ``shard_row_keys`` and ``shard_expand`` times, the launches per regen
+and a digest of each output, through entry points that earlier trees
+share: run it as a copy inside an older checkout to time that tree's route
+on the same card.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -82,6 +93,9 @@ SLICE1 = ("index_general", "index_amortized")
 SLICE2 = ("index_amortized", "index_general_wide", "index_amortized_wide")
 #: the slice-3 kernels, and the index kernels its mixture path never runs
 SLICE3 = ("mixture_source_keys", "mixture_fused")
+#: round counts of slice 6: above the old limit of 64, SPEC.md §2's ~102
+#: and ~121, and the new limit (ck.MAX_ROUNDS)
+HIGH_ROUNDS = (65, 102, 121)
 #: the slice-4 kernels (shard-index mode)
 SLICE4 = ("shard_row_keys", "shard_expand")
 #: shards each old rank has consumed when its checkpoint reshards 8 -> 16
@@ -150,15 +164,25 @@ S4_SHARDS, S4_M = 400_000, 10_000
 SHARD_GOLDENS = {True: [10, 8, 11, 6, 7, 9, 5, 1, 2, 0, 3, 4, 13, 12, 14],
                  2: [5, 6, 8, 7, 9, 10, 11, 0, 1, 3, 2, 4, 12, 13, 14]}
 #: shard_expand per lane besides its bijection, counted from
-#: csrc/shard_kernels.cu in the same way: the row and u (t / m and its
-#: multiply-subtract, 2), W = min(w, m) and its test (2), the body test
-#: (1), the window and in-window offset (2), the combine (1) and the
-#: offset add (1); a binary-search step (mixed sizes) adds 4 (the midpoint,
-#: the compare and two selects)
-SHARD_LANE_OPS = 9
+#: csrc/shard_kernels.cu (lane tiles) in the same way: the staged row (t / m
+#: as a multiply-high, its subtract, add and two shifts: 5, minus the
+#: tile's first row: 1), u (end - m, t - start: 2), W and the body and
+#: window tests (3), the combine (1) and the offset add (1); a window of
+#: w < m adds WINDOW_LANE_OPS (u / w as a multiply-high: 5, the window base
+#: and in-window offset: 2, the key index: 1).  Mixed sizes find the staged
+#: row by a search in shared memory, SEARCH_STEP_OPS a step (the midpoint,
+#: the compare and two selects), in place of the 6 of the division.  The
+#: decision keys are counted once per row (INNER_KEY_OPS + TAIL_KEY_OPS)
+#: and once per window of w (INNER_KEY_OPS), where the kernel derives them.
+SHARD_LANE_OPS = 13
+WINDOW_LANE_OPS = 8
 SEARCH_STEP_OPS = 4
 #: the tail bijection's key2 (mix32 + xor); the inner one is INNER_KEY_OPS
 TAIL_KEY_OPS = 7
+#: the first design's count per lane (one thread per lane, the keys per
+#: lane, t / m or a binary search over all rows), for the old bound beside
+#: the new
+SHARD_LANE_OPS_V1 = 9
 #: shard_row_keys per row: the carried fold (4), seed key (three mix32,
 #: three xors: 21), epoch key (two mix32, two xors: 14), pairing and tail
 #: keys (14), W and body (4); per pairing constant mix32, xor, multiply,
@@ -166,6 +190,18 @@ TAIL_KEY_OPS = 7
 ROW_BASE_OPS, ROW_KEY_OPS = 57, 11
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+
+
+def shard_cells():
+    """(sizes, label, world, within_shard_shuffle) of every shard_expand
+    shape that is timed: S1 at world 8 (the main path; full, window 64,
+    sequential) and 1, S2 and S3 at world 8 (full, window 64), S4."""
+    sz1, sz2, sz3, sz4 = shard_corpora()
+    return ((sz1, "S1", 8, True), (sz1, "S1", 8, SHARD_W),
+            (sz1, "S1", 8, False), (sz1, "S1", 1, True),
+            (sz1, "S1", 1, SHARD_W), (sz2, "S2", 8, True),
+            (sz2, "S2", 8, SHARD_W), (sz3, "S3", 8, True),
+            (sz3, "S3", 8, SHARD_W), (sz4, "S4", 8, True))
 
 
 def shard_corpora():
@@ -303,6 +339,28 @@ def regen_report() -> None:
         cases.append((f"shard regen per epoch S1 world={world}",
                       lambda sm=sampler: sm.device_epoch_indices(sz1),
                       20 if world == 8 else 5))
+    # the shard_expand kernel alone at every shape of PERF.md's table
+    # (records from shard_row_keys, which the sequential mode ignores)
+    for sizes, label, world, wss in shard_cells():
+        sids = pt.epoch_indices_cuda(sizes.size, SHARD_W, 0, 1, 5 % world,
+                                     world)
+        tabs = SH.shard_tables(sizes, "cuda")
+        full, w = SH.shuffle_mode(wss)
+        rowtab, m_of = ck.shard_row_keys(sids, tabs, 0, 1, full=full, w=w,
+                                         sizes_out=True)
+        ends = None if tabs.m_uniform else torch.cumsum(m_of, 0)
+        lanes = (sids.numel() * tabs.m_uniform if ends is None
+                 else int(ends[-1]))
+        cases.append((
+            f"shard_expand {label} world={world} within_shard_shuffle={wss}"
+            f" ({lanes} lanes)",
+            lambda r=rowtab, s=sids, t=tabs, e=ends, k=dict(
+                lanes=lanes, full=full, w=w): ck.shard_expand(r, s, t, e, **k),
+            5 if label == "S4" or world == 1 else 20))
+    m1 = pt.MixtureSpec(M1_SOURCES, M1_WEIGHTS, windows=W)
+    cases.append(("mixture regen per epoch M1 world=256",
+                  lambda: pt.mixture_epoch_indices_cuda(m1, 0, 1, 5, 256),
+                  20))
     for label, fn, reps in cases:
         before = sum(ck.launches.values())
         out = fn()
@@ -753,27 +811,37 @@ def main() -> None:
         """The rank's shard-id stream, from the index kernels."""
         return pt.epoch_indices_cuda(num, SHARD_W, 0, epoch, rank, world)
 
-    def hold_shard(sizes, sids, wss, label, seed=0, epoch=1):
+    def hold_shard(sizes, sids, wss, label, seed=0, epoch=1, rounds=24):
         """Both shard kernels against their plain versions on the same
-        inputs; returns the kernels' expansion."""
+        inputs; returns the kernels' expansion.  Sequential mode launches
+        no shard_row_keys."""
         tabs = SH.shard_tables(sizes, dev)
         full, w = SH.shuffle_mode(wss)
         rowtab, m_of = ck.shard_row_keys(sids, tabs, seed, epoch,
-                                         full=full, w=w, sizes_out=True)
+                                         full=full, w=w, rounds=rounds,
+                                         sizes_out=True)
         rowtab_ref, m_ref = ck.shard_row_keys_ref(sids, tabs.dev_sizes, seed,
-                                                  epoch, full=full, w=w)
+                                                  epoch, full=full, w=w,
+                                                  rounds=rounds)
         hold("shard_row_keys", torch.cat([rowtab.long(), m_of]),
              torch.cat([rowtab_ref.long(), m_ref]),
-             f"{label} within_shard_shuffle={wss}: {sids.numel()} rows")
-        before = ck.launches["shard_expand"]
+             f"{label} within_shard_shuffle={wss} rounds={rounds}: "
+             f"{sids.numel()} rows")
+        before = dict(ck.launches)
         got = SM.expand_shard_indices_cuda(sids, sizes, seed=seed,
                                            epoch=epoch,
-                                           within_shard_shuffle=wss)
-        check(ck.launches["shard_expand"] == before + 1,
+                                           within_shard_shuffle=wss,
+                                           rounds=rounds)
+        check(ck.launches["shard_expand"] == before["shard_expand"] + 1,
               f"{label}: the expansion did not launch shard_expand once")
+        check(ck.launches["shard_row_keys"] == before["shard_row_keys"]
+              + int(not SH.sequential(full, w)),
+              f"{label}: shard_row_keys launches in mode {wss}")
         hold("shard_expand", got, SM.expand_shard_indices_generic(
-            sids, sizes, seed=seed, epoch=epoch, within_shard_shuffle=wss),
-             f"{label} within_shard_shuffle={wss} (all {got.numel()} lanes)")
+            sids, sizes, seed=seed, epoch=epoch, within_shard_shuffle=wss,
+            rounds=rounds),
+             f"{label} within_shard_shuffle={wss} rounds={rounds} (all "
+             f"{got.numel()} lanes)")
         return got
 
     sizes = [5, 0, 7, 3, 4]
@@ -795,6 +863,27 @@ def main() -> None:
         for wss in (True, SHARD_W):
             hold_shard(sizes, shard_ids(SHARDS, 8, 3), wss,
                        f"{label} world=8 rank=3")
+    # the tile edges of shard_expand (tiles of at most 4,096 lanes, at most
+    # 64 staged rows): S1's rows cut by tile edges and S3's tiles inside one
+    # row are above; here rows past the staged budget (3M rows of 0..3
+    # lanes), zero-size rows, a partial last tile and, in sequential mode,
+    # row starts at every alignment of the 16-byte stores
+    rng = np.random.default_rng(6)
+    tiny = rng.integers(0, 4, 3_000_000)
+    holes = rng.integers(0, 2000, 6000)
+    holes[rng.random(6000) < 0.3] = 0
+    odd = rng.integers(0, 12, 50_000) * 2 + 1
+    odd[::13] = 0
+    for sizes, label, modes in (
+            (tiny, "3M rows of 0..3 lanes", (True, SHARD_W, 2, False)),
+            (holes, "30% zero-size rows", (True, SHARD_W, False)),
+            (np.full(12_345, 997), "12,345 x 997 (partial last tile)",
+             (True, SHARD_W, False)),
+            (odd, "odd sizes (unaligned row starts)", (False, 3))):
+        sids = torch.from_numpy(
+            rng.permutation(sizes.size).astype(np.int32)).to(dev)
+        for wss in modes:
+            hold_shard(sizes, sids, wss, f"tile edges, {label}")
     t = triple_of(0x1_0000_0007, 3)
     for sizes, wss, label in ((sz2, True, "S2"), (sz1, SHARD_W, "S1")):
         sids = shard_ids(SHARDS, 8, 5)
@@ -830,6 +919,53 @@ def main() -> None:
     check(int(out.max()) > 2**31, "S4 indices do not pass 2^31")
     del out, rowtab, sids, t
     torch.cuda.empty_cache()
+
+    # ------------------------ 3e: rounds above 64 in every kernel family
+    # 65, SPEC.md §2's ~102 and ~121 at the main paths' shapes, and the
+    # limit at a smaller rank share (the plain versions loop over rounds)
+    for rounds in (*HIGH_ROUNDS, ck.MAX_ROUNDS):
+        at_limit = rounds == ck.MAX_ROUNDS
+        world = 4096 if at_limit else 256
+        kw = dict(rounds=rounds)
+        want = ck.index_general_ref(N_C4, W, 0, 1, 5, world, device=dev,
+                                    **kw)
+        hold("index_general", ck.index_general(N_C4, W, 0, 1, 5, world, **kw),
+             want, f"n=1e9 W=8192 world={world} rounds={rounds}")
+        hold("index_amortized",
+             ck.index_amortized(N_C4, W, 0, 1, 5, world, **kw), want,
+             f"n=1e9 W=8192 world={world} rounds={rounds}")
+        want = ck.index_general_wide_ref(N_WIDE1, W, 0, 1, 8191, 8192,
+                                         device=dev, **kw)
+        hold("index_general_wide",
+             ck.index_general_wide(N_WIDE1, W, 0, 1, 8191, 8192, **kw), want,
+             f"n=2^31+5000 W=8192 world=8192 rounds={rounds}")
+        hold("index_amortized_wide",
+             ck.index_amortized_wide(N_WIDE1, W, 0, 1, 8191, 8192, **kw),
+             want, f"n=2^31+5000 W=8192 world=8192 rounds={rounds}")
+        keys = ck.mixture_source_keys(m1, 0, 1, **kw)
+        hold("mixture_source_keys", keys,
+             ck.mixture_source_keys_ref(m1, 0, 1, device=dev, **kw),
+             f"M1 rounds={rounds} ({keys.numel()} words)")
+        ns, wide = mix_sizes(m1, None, world)
+        lanes_kw = dict(rank=5, world=world, num_samples=ns, wide_pos=wide,
+                        **kw)
+        want = ck.mixture_fused_ref(keys, m1, 0, 1, **lanes_kw)
+        hold("mixture_fused", ck.mixture_fused(keys, m1, 0, 1, **lanes_kw),
+             want, f"M1 world={world} rounds={rounds}, keys given")
+        if (ck.mixture_key_words(m1, rounds) + 8 * m1.num_sources
+                <= ck.STAGE_WORDS_CAP):  # the kernel can derive them
+            hold("mixture_fused", ck.mixture_fused(None, m1, 0, 1,
+                                                   **lanes_kw), want,
+                 f"M1 world={world} rounds={rounds}, keys derived in the "
+                 "kernel")
+        sworld = 64 if at_limit else 8
+        for wss in (True, SHARD_W, False):
+            hold_shard(sz1, shard_ids(SHARDS, sworld, 3), wss,
+                       f"S1 world={sworld}", rounds=rounds)
+        hold_shard(sz2, shard_ids(SHARDS, sworld, 3), SHARD_W,
+                   f"S2 world={sworld}", rounds=rounds)
+        del keys, want
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------ main path
     ck.reset_launches()
@@ -1072,6 +1208,16 @@ def main() -> None:
         served[workers] = torch.cat(list(DataLoader(
             IdDataset(m1.total_sources_len), batch_size=None,
             sampler=BatchSampler(s, 8192, False), num_workers=workers)))
+    # 11b: the 300-source spec through the mixture sampler: its keys are
+    # too many to fold, so its regen takes mixture_source_keys first
+    s300_sampler = pt.PartialShuffleMixtureSampler(
+        list(s300.sources), list(s300.weights), num_replicas=256, rank=9,
+        windows=W, block=s300.block)
+    s300_sampler.set_epoch(1)
+    s300_served = torch.cat(list(DataLoader(
+        IdDataset(s300.total_sources_len), batch_size=None,
+        sampler=BatchSampler(s300_sampler, 8192, False))))
+    regens300 = 1
     # 12: MixtureEpochIterator at M1 / world 256
     it = pt.MixtureEpochIterator(m1, 512, seed=0, rank=5, world=256)
     check(it.steps_per_epoch == 3_906_250 // 512, "steps per epoch")
@@ -1110,10 +1256,14 @@ def main() -> None:
     regens += 2 + 32 + 1
     launches3 = dict(ck.launches)
     print(f"kernels (slice-3 main path): {json.dumps(launches3)}")
-    for name in SLICE3:
-        check(launches3[name] == regens,
-              f"kernel {name} ran {launches3[name]} times for {regens} "
-              "mixture regens on the slice-3 main path")
+    # M1's keys fold into mixture_fused: one launch a regen; the 300-source
+    # regen takes both kernels
+    check(launches3["mixture_fused"] == regens + regens300,
+          f"mixture_fused ran {launches3['mixture_fused']} times for "
+          f"{regens + regens300} mixture regens on the slice-3 main path")
+    check(launches3["mixture_source_keys"] == regens300,
+          f"mixture_source_keys ran {launches3['mixture_source_keys']} "
+          f"times: it runs only for the {regens300} 300-source regen")
     for name in INDEX_KERNELS:
         check(launches3[name] == 0,
               f"index kernel {name} ran on the mixture main path")
@@ -1144,6 +1294,12 @@ def main() -> None:
           f"kernel's; per-source shares {(shares / shares.sum()).round(4)}: "
           f"{ok}; regen timer {s.regen_timer.report()}")
     check(ok, "the mixture sampler's stream differs")
+    ok = torch.equal(s300_served, M.mixture_epoch_indices_generic(
+        s300, 0, 1, 9, 256, device=dev).cpu().long())
+    print(f"mixture sampler, 300 sources, world=256 rank=9 through a "
+          f"DataLoader: {s300_served.numel()} ids equal to the plain law "
+          f"(mixture_source_keys + mixture_fused): {ok}")
+    check(ok, "the 300-source mixture sampler's stream differs")
     epochs = {e: pt.mixture_epoch_indices_cuda(m1, 0, e, 5, 256)
               for e in range(5)}
     ok = (torch.equal(it_epoch0, epochs[0][:whole])
@@ -1195,7 +1351,7 @@ def main() -> None:
     check(ok, "the single-source runners differ from the law")
     dist.destroy_process_group()
     del (served, it, batches, it_epoch0, epochs, mix_elastic, mix_reseeds,
-         mix_sh_elastic, want, it1, c4)
+         mix_sh_elastic, want, it1, c4, s300_served)
     torch.cuda.empty_cache()
 
     # ------------------------------------------- slice-4 main path
@@ -1322,7 +1478,7 @@ def main() -> None:
               and res["mixture_equal"] and res["mixture_elastic_equal"]
               and res["launches"]["index_amortized"] == 1
               and res["launches"]["mixture_fused"] == 2
-              and res["launches"]["mixture_source_keys"] == 2,
+              and res["launches"]["mixture_source_keys"] == 0,
               f"gloo rank {res['rank']}: rank 0's seed did not win")
         check(res["rank"] == 0 or (res["own_seed_differs"]
                                    and res["own_mixture_seed_differs"]),
@@ -1440,21 +1596,82 @@ def main() -> None:
             line += f", device triple {tri_ms:.4f} ms"
         print(f"{line} | {card}")
     torch.cuda.empty_cache()
+    # the elastic remainder regen (plain torch ops on the card, ROADMAP
+    # Queue B item 1) beside the kernel regen of the same shape: 1B and
+    # 10B, world 256, after one reshard 128 -> 256 half-way through the
+    # epoch; the same timers as the regens
+    for n in (N_C4, N_LLAMA):
+        ns128, _ = core.shard_sizes(n, 128, False)
+        layers_el = [(128, ns128 // 2)]
+        chain, _rem, ns_el = core.elastic_chain(n, layers_el, 256)
+        it_el = pt.DeviceEpochIterator(n, W, 512, seed=0, rank=5, world=256,
+                                       prefetch_next_epoch=False)
+        regen = gpu_ms(lambda n=n: pt.epoch_indices_cuda(n, W, 0, 1, 5, 256),
+                       20)
+        regen_lanes, _ = core.shard_sizes(n, 256, False)
+        for label, fn in (
+                ("elastic_indices_cuda", lambda n=n, c=chain, k=ns_el:
+                 pt.elastic_indices_cuda(n, W, 0, 1, 5, 256, k, c)),
+                ("DeviceEpochIterator.elastic_epoch_array",
+                 lambda it=it_el, ly=layers_el: it.elastic_epoch_array(1, ly))):
+            before = sum(ck.launches.values())
+            fn()
+            n_launch = sum(ck.launches.values()) - before
+            dev_ms = gpu_ms(fn, 5)
+            walls = host_walls(fn, 5)
+            print(f"elastic regen {label} n={n:.0e} W=8192 world=256 after "
+                  f"{layers_el} ({ns_el} lanes, {n_launch} kernel launches): "
+                  f"device {dev_ms:.4f} ms, host wall to ready median "
+                  f"{float(np.median(walls)):.4f} ms min {min(walls):.4f} ms;"
+                  f" kernel regen of the full epoch ({regen_lanes} lanes) "
+                  f"{regen:.4f} ms, per lane {dev_ms / ns_el:.3e} against "
+                  f"{regen / regen_lanes:.3e} ms, "
+                  f"{(dev_ms / ns_el) / (regen / regen_lanes):.1f}x | {card}")
+        del it_el
+        torch.cuda.empty_cache()
+    # the three hot kernels at 121 rounds (SPEC.md §2), beside 24
+    ns_m1, _ = mix_sizes(m1, None, 256)
+    sids121 = pt.epoch_indices_cuda(SHARDS, SHARD_W, 0, 1, 5, 8)
+    tabs121 = SH.shard_tables(sz1, dev)
+    for rounds in (24, 121):
+        rt = ck.shard_row_keys(sids121, tabs121, 0, 1, full=True, w=0,
+                               rounds=rounds)[0]
+        times = [gpu_ms(fn, 20) for fn in (
+            lambda r=rounds: ck.index_amortized(N_C4, W, 0, 1, 5, 256,
+                                                rounds=r),
+            lambda r=rounds: ck.mixture_fused(None, m1, 0, 1, rank=5,
+                                              world=256, num_samples=ns_m1,
+                                              wide_pos=False, rounds=r),
+            lambda r=rounds, rt=rt: ck.shard_expand(
+                rt, sids121, tabs121, None, lanes=sids121.numel() * SHARD_M,
+                full=True, w=0, rounds=r))]
+        print(f"time at {rounds} rounds: index_amortized 1B/world 256 "
+              f"{times[0]:.4f} ms, mixture_fused M1/world 256 {times[1]:.4f} "
+              f"ms, shard_expand S1/world 8 full {times[2]:.4f} ms | {card}")
+    del sids121, tabs121, rt
+    torch.cuda.empty_cache()
 
     # the mixture kernels: M1 at world 256 / 32 / 8, M2, M3
-    def table_bytes(spec):
+    def table_bytes(spec, keys_read=True):
         """The kernels' inputs, each read once: pattern, prefix counts,
-        source table and keys buffer."""
+        source table and (unless the keys are folded) the keys buffer."""
         return 4 * (spec.block * (1 + spec.num_sources)
-                    + 8 * spec.num_sources + ck.mixture_key_words(spec, 24))
+                    + 8 * spec.num_sources
+                    + (ck.mixture_key_words(spec, 24) if keys_read else 0))
 
-    words = ck.mixture_key_words(m1, 24)
-    ms = gpu_ms(lambda: ck.mixture_source_keys(m1, 0, 1), 200)
-    plain = gpu_ms(lambda: ck.mixture_source_keys_ref(m1, 0, 1, device=dev),
-                   20)
-    b_ms, b_by = bound(words * KEY_WORD_OPS, words * 4 + 32 * 3)
-    print(f"time mixture_source_keys M1 ({words} words): kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
+    def mix_grid(lanes):
+        """Blocks of a mixture_fused launch: one per THREADS lanes, at most
+        8 per SM (csrc/law.cuh grid_for)."""
+        return min((lanes + 255) // 256, 8 * sms)
+
+    # mixture_source_keys: now only for specs past the fold (300 sources)
+    words = ck.mixture_key_words(s300, 24)
+    ms = gpu_ms(lambda: ck.mixture_source_keys(s300, 0, 1), 200)
+    plain = gpu_ms(lambda: ck.mixture_source_keys_ref(s300, 0, 1,
+                                                      device=dev), 20)
+    b_ms, b_by = bound(words * KEY_WORD_OPS, words * 4 + 32 * 300)
+    print(f"time mixture_source_keys S=300 ({words} words): kernel {ms:.4f} "
+          f"ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
           f"{b_ms / ms:.1%} of bound (one launch) | {card}")
     rows["mixture_source_keys"] = (ms, plain, b_ms, b_by)
     son = 24 * ROUND_OPS
@@ -1467,13 +1684,20 @@ def main() -> None:
         ns, wide = mix_sizes(spec, es, world)
         body, tail, _near = mix_lanes(spec, es, world, rank)
         lane = MIX_LANE_OPS + (WIDE_OPS if wide else 0)
+        staged = ck.mixture_key_words(spec, 24) + 8 * spec.num_sources
+        # folded: every block derives the key words (not the table) again
         ops = (body * (lane + BIJ_KEY_OPS + INNER_KEY_OPS + 2 * son)
-               + tail * (lane + BIJ_KEY_OPS + son))
-        nbytes = ns * spec.out_dtype().itemsize + table_bytes(spec)
+               + tail * (lane + BIJ_KEY_OPS + son)
+               + mix_grid(ns) * ck.mixture_key_words(spec, 24) * KEY_WORD_OPS)
+        nbytes = (ns * spec.out_dtype().itemsize
+                  + table_bytes(spec, keys_read=False))
         keys = ck.mixture_source_keys(spec, 0, 1)
         kw = dict(rank=rank, world=world, num_samples=ns, wide_pos=wide)
-        ms = gpu_ms(lambda s=spec, k=keys, kw=kw: ck.mixture_fused(
-            k, s, 0, 1, **kw), 5 if world == 8 else 20)
+        reps = 5 if world == 8 else 20
+        ms = gpu_ms(lambda s=spec, kw=kw: ck.mixture_fused(None, s, 0, 1,
+                                                           **kw), reps)
+        given = gpu_ms(lambda s=spec, k=keys, kw=kw: ck.mixture_fused(
+            k, s, 0, 1, **kw), reps)
         plain = None
         if world != 8:  # world 8's plain version needs ~30 GB of int64
             torch.cuda.reset_peak_memory_stats()
@@ -1483,25 +1707,50 @@ def main() -> None:
         b_ms, b_by = bound(ops, nbytes)
         plain_s = ("not measured" if plain is None
                    else f"{plain:.4f} ms ({peak:.1f} GiB peak)")
-        print(f"time mixture_fused {label}: kernel {ms:.4f} ms, plain "
-              f"{plain_s}, bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G "
-              f"int32 ops over {body} body + {tail} tail lanes, "
-              f"{nbytes / 1e6:.1f} MB), {b_ms / ms:.1%} of bound | {card}")
+        print(f"time mixture_fused {label}: kernel {ms:.4f} ms (keys "
+              f"folded, {staged} staged words; {given:.4f} ms reading the "
+              f"keys buffer), plain {plain_s}, bound {b_ms:.4f} ms ({b_by}; "
+              f"{ops / 1e9:.3f} G int32 ops over {body} body + {tail} tail "
+              f"lanes and {mix_grid(ns)} blocks' keys, {nbytes / 1e6:.1f} "
+              f"MB), {b_ms / ms:.1%} of bound | {card}")
         rows.setdefault("mixture_fused", (ms, plain, b_ms, b_by))
         del keys
         torch.cuda.empty_cache()
+    # the fold threshold: one launch that derives the keys in every block,
+    # against mixture_source_keys + mixture_fused, over growing source
+    # counts (24 rounds; M1's window and block), at 3.9M lanes (world 256)
+    # and 244k (world 4096, one lane per thread)
+    for S in (3, 6, 12, 25):
+        spec = pt.MixtureSpec([N_C4 // S] * S, [1 + i % 5 for i in range(S)],
+                              windows=W)
+        staged = ck.mixture_key_words(spec, 24) + 8 * S
+        for world in (256, 4096):
+            ns, wide = mix_sizes(spec, None, world)
+            kw = dict(rank=5, world=world, num_samples=ns, wide_pos=wide)
+            one = gpu_ms(lambda s=spec, kw=kw: ck.mixture_fused(
+                None, s, 0, 1, **kw), 50)
+            two = gpu_ms(lambda s=spec, kw=kw: ck.mixture_fused(
+                ck.mixture_source_keys(s, 0, 1), s, 0, 1, **kw), 50)
+            print(f"fold S={S} ({staged} staged words) world={world} "
+                  f"({ns} lanes): folded {one:.4f} ms, two launches "
+                  f"{two:.4f} ms, folded - two {one - two:+.4f} ms | {card}")
     for label, spec, es, world in (("M1", m1, None, 256), ("M1", m1, None, 32),
                                    ("M1", m1, None, 8),
                                    ("M2", m1, M2_SAMPLES, 256),
-                                   ("M3", m3, None, 256)):
+                                   ("M3", m3, None, 256),
+                                   ("S=300", s300, None, 256)):
         fn = lambda s=spec, es=es, w=world: pt.mixture_epoch_indices_cuda(
             s, 0, 1, 5 % w, w, epoch_samples=es)
+        before = sum(ck.launches.values())
+        fn()
+        n_launch = sum(ck.launches.values()) - before
         reps = 5 if world == 8 else 20
         dev_ms = gpu_ms(fn, reps)
         walls = host_walls(fn, reps)
         line = (f"mixture regen per epoch {label} world={world}: device "
-                f"{dev_ms:.4f} ms (2 launches), host wall to ready median "
-                f"{float(np.median(walls)):.4f} ms min {min(walls):.4f} ms")
+                f"{dev_ms:.4f} ms ({n_launch} launches), host wall to ready "
+                f"median {float(np.median(walls)):.4f} ms min "
+                f"{min(walls):.4f} ms")
         if world == 256:
             t3 = triple_of(0, 1)
             tri_ms = gpu_ms(lambda s=spec, es=es: pt.mixture_epoch_indices_cuda(
@@ -1521,16 +1770,20 @@ def main() -> None:
         return (int(body[shuffled].sum()), int((m - body)[shuffled].sum()),
                 int(m[~shuffled].sum()))
 
-    for sizes, label, world, wss in (
-            (sz1, "S1", 8, True), (sz1, "S1", 8, SHARD_W),
-            (sz1, "S1", 8, False), (sz1, "S1", 1, True),
-            (sz1, "S1", 1, SHARD_W), (sz2, "S2", 8, True),
-            (sz2, "S2", 8, SHARD_W), (sz3, "S3", 8, True),
-            (sz3, "S3", 8, SHARD_W), (sz4, "S4", 8, True)):
+    def expand_tile(lanes):
+        """shard_expand's tile (csrc/shard_kernels.cu expand_tile)."""
+        cap = 8 * sms
+        rounds_of_tiles = -(-lanes // (cap * 4096))
+        tile = -(-lanes // (cap * rounds_of_tiles))
+        return min(4096, -(-tile // 32) * 32)
+
+    per_lane = {}
+    for sizes, label, world, wss in shard_cells():
         sids = pt.epoch_indices_cuda(sizes.size, SHARD_W, 0, 1, 5 % world,
                                      world)
         tabs = SH.shard_tables(sizes, dev)
         full, w = SH.shuffle_mode(wss)
+        seq = SH.sequential(full, w)
         rowtab, m_of = ck.shard_row_keys(sids, tabs, 0, 1, full=full, w=w,
                                          sizes_out=True)
         ends = None if tabs.m_uniform else torch.cumsum(m_of, 0)
@@ -1553,13 +1806,32 @@ def main() -> None:
                   f"{floor_ms:.4f} ms, zero_ of its {rowtab.numel() * 4 / 1e6:.1f}"
                   f" MB table {fill:.4f} ms | {card}")
             rows.setdefault("shard_row_keys", (ms, plain, b_ms, b_by))
-        body, tail, seq = shard_work(sizes, sids, wss)
-        lane = SHARD_LANE_OPS + (0 if ends is None else SEARCH_STEP_OPS
-                                 * int(np.ceil(np.log2(max(rows_n, 2)))))
-        ops = (body * (lane + INNER_KEY_OPS + son)
-               + tail * (lane + TAIL_KEY_OPS + son) + seq * lane)
+        if seq:  # the copy reads no record
+            rowtab = None
+        body, tail, stored = shard_work(sizes, sids, wss)
+        m = sizes[sids.cpu().numpy()]
+        windowed = (m > w) if not full and not seq else np.zeros_like(m, bool)
+        w_body = int((m // max(w, 1) * max(w, 1))[windowed].sum())
+        n_windows = int((m // max(w, 1))[windowed].sum())
+        # this PR's count: the staged row found by t / m, or by a search
+        # over the staged rows of an average tile (mixed sizes)
+        tile = expand_tile(lanes)
+        steps = int(np.ceil(np.log2(min(64, max(2, rows_n * tile / lanes)))))
+        lane = SHARD_LANE_OPS + (0 if ends is None
+                                 else SEARCH_STEP_OPS * steps - 6)
+        ops = ((body + tail) * (lane + son) + stored * lane
+               + w_body * WINDOW_LANE_OPS + n_windows * INNER_KEY_OPS
+               + (0 if seq else rows_n * (INNER_KEY_OPS + TAIL_KEY_OPS)))
         nbytes = (lanes * tabs.out_dtype.itemsize
-                  + rows_n * (4 + 8 + 4 * words + (0 if ends is None else 8)))
+                  + rows_n * (4 + 8 + (0 if seq else 4 * words)
+                              + (0 if ends is None else 8)))
+        # the first design's count: keys per lane, a search over every row
+        lane4 = SHARD_LANE_OPS_V1 + (0 if ends is None else SEARCH_STEP_OPS
+                                      * int(np.ceil(np.log2(max(rows_n, 2)))))
+        ops4 = (body * (lane4 + INNER_KEY_OPS + son)
+                + tail * (lane4 + TAIL_KEY_OPS + son) + stored * lane4)
+        nbytes4 = (lanes * tabs.out_dtype.itemsize
+                   + rows_n * (4 + 8 + 4 * words + (0 if ends is None else 8)))
         kw = dict(lanes=lanes, full=full, w=w)
         big = label == "S4" or world == 1
         ms = gpu_ms(lambda: ck.shard_expand(rowtab, sids, tabs, ends, **kw),
@@ -1573,16 +1845,25 @@ def main() -> None:
                 2 if big else 3)
             peak = torch.cuda.max_memory_allocated() / 2**30
         b_ms, b_by = bound(ops, nbytes)
+        b4_ms, b4_by = bound(ops4, nbytes4)
         plain_s = ("not measured" if plain is None
                    else f"{plain:.4f} ms ({peak:.1f} GiB peak)")
-        print(f"time shard_expand {tag}: kernel {ms:.4f} ms, plain "
-              f"{plain_s}, bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G "
-              f"int32 ops over {body} body + {tail} tail + {seq} storage-"
-              f"order lanes, {nbytes / 1e6:.1f} MB), {b_ms / ms:.1%} of "
-              f"bound | {card}")
+        per_lane[label, world, wss] = ms * 1e9 / lanes
+        print(f"time shard_expand {tag}: kernel {ms:.4f} ms "
+              f"({ms * 1e9 / lanes:.2f} ps a lane over {lanes} lanes, tiles "
+              f"of {tile}), plain {plain_s}, bound {b_ms:.4f} ms ({b_by}; "
+              f"{ops / 1e9:.3f} G int32 ops over {body} body + {tail} tail + "
+              f"{stored} storage-order lanes, {nbytes / 1e6:.1f} MB), "
+              f"{b_ms / ms:.1%} of bound; one-thread-per-lane count {b4_ms:.4f} ms "
+              f"({b4_by}), {b4_ms / ms:.1%} of it | {card}")
         rows.setdefault("shard_expand", (ms, plain, b_ms, b_by))
         del sids, rowtab, m_of, ends
         torch.cuda.empty_cache()
+    for label in ("S2", "S3"):
+        for wss in (True, SHARD_W):
+            ratio = per_lane[label, 8, wss] / per_lane["S1", 8, wss]
+            print(f"shard_expand per lane, {label} against S1 (world 8, "
+                  f"within_shard_shuffle={wss}): {ratio:.3f} | {card}")
     # the slice-4 regen per epoch: the sampler's shard ids and expansion
     for sizes, label, world in ((sz1, "S1", 8), (sz1, "S1", 1),
                                 (sz2, "S2", 8)):
@@ -1591,8 +1872,11 @@ def main() -> None:
         fn = lambda sm=sampler, sz=sizes: sm.device_epoch_indices(sz)
         reps = 20 if world == 8 else 5
         walls = host_walls(fn, reps)
+        before = sum(ck.launches.values())
+        fn()
+        n_launch = sum(ck.launches.values()) - before
         line = (f"shard regen per epoch {label} world={world} (shard ids + "
-                f"expansion, 3 launches): host wall to ready median "
+                f"expansion, {n_launch} launches): host wall to ready median "
                 f"{float(np.median(walls)):.4f} ms min {min(walls):.4f} ms")
         if label == "S1":  # mixed sizes read the epoch length back
             line = line.replace(": host", f": device "

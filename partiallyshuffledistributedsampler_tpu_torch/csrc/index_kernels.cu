@@ -54,13 +54,20 @@
 // grid-stride loop (tile-stride in the amortized kernels); shared memory
 // holds the per-round pairing constants K_r
 // = mix32(pair ^ r*GOLDEN) mod m, which depend on scalars only and are
-// computed once per block (at most 3 schedules x 64 rounds), never per
-// element, and in the amortized kernels the window ids of the block's
-// current tile.
+// computed once per block, never per element, and in the amortized kernels
+// the window ids of the block's current tile.  Up to STATIC_ROUNDS (64)
+// rounds the three schedules are fixed shared arrays of 3 x 64 words; above
+// that (kDyn) they take 3 * rounds words of dynamic shared memory (48 KB at
+// MAX_ROUNDS = 4,096), and past the 48 KB a block gets by default the
+// launch opts in with cudaFuncSetAttribute, up to the card's 227 KB.  Two
+// forms, because the dynamic one was 3.5 % slower at 24 rounds on the H100
+// (PERF.md §6): with the schedules' stride known and 16-byte
+// alignment the unrolled round loop reads its constants as LDS.128, four a
+// load; with a runtime stride it reads them one or two at a time.
 //
 // The amortized tile.  Its TILE_MAX + 2 ids (16 KB) beside the schedules
-// (768 B) leave room for 8 resident blocks per SM.  A tile of lanes [a, b)
-// spans the slots a/m .. (b-1)/m; the block computes those ids, waits at a
+// (768 B up to 64 rounds) leave room for 8 resident blocks per SM.  A tile
+// of lanes [a, b) spans the slots a/m .. (b-1)/m; the block computes those ids, waits at a
 // barrier, runs the tile's lanes, and waits again before the next tile.  A
 // slot cut by a tile edge is computed by both tiles: at most one bijection
 // more per tile, against the nw*4 bytes of a separate pre-pass written and
@@ -106,9 +113,10 @@ struct Keys {
   uint32_t ek, okey, tkey, pair_inner;
 };
 
-// Pairing constants of the three bijections, shared by the block.
+// Pairing constants of the three bijections, shared by the block: views
+// on 3 * rounds words of dynamic shared memory.
 struct Schedules {
-  uint32_t outer[MAX_ROUNDS], inner[MAX_ROUNDS], tail[MAX_ROUNDS];
+  const uint32_t *outer, *inner, *tail;
 };
 
 // `seeds` (nullable): the triple in device memory, read in place of the
@@ -165,12 +173,23 @@ __device__ __forceinline__ Pos stream_position(Pos t, const LawParams &P) {
   return p % (Pos)P.n;
 }
 
-__device__ __forceinline__ void load_schedules(Schedules &s,
-                                               const LawParams &P,
-                                               const Keys &k) {
-  load_round_keys(s.outer, k.okey, P.nw, P.rounds);
-  load_round_keys(s.inner, k.pair_inner, P.window, P.rounds);
-  load_round_keys(s.tail, k.tkey, P.tail_len, P.rounds);
+// Block-cooperative: the three schedules into `smem`, `stride` words
+// apart; the caller waits at a barrier before reading them.
+__device__ __forceinline__ Schedules load_schedules(uint32_t *smem,
+                                                    int stride,
+                                                    const LawParams &P,
+                                                    const Keys &k) {
+  uint32_t *outer = smem, *inner = smem + stride, *tail = smem + 2 * stride;
+  load_round_keys(outer, k.okey, P.nw, P.rounds);
+  load_round_keys(inner, k.pair_inner, P.window, P.rounds);
+  load_round_keys(tail, k.tkey, P.tail_len, P.rounds);
+  return Schedules{outer, inner, tail};
+}
+
+// Dynamic shared memory of a launch: the three schedules past
+// STATIC_ROUNDS, else none.
+inline size_t schedule_bytes(int rounds) {
+  return rounds > STATIC_ROUNDS ? 3 * (size_t)rounds * sizeof(uint32_t) : 0;
 }
 
 // Lanes of an amortized tile: at most TILE_MAX, a multiple of WARP.
@@ -178,13 +197,18 @@ constexpr uint32_t TILE_MAX = 4096;
 constexpr uint32_t WARP = 32;
 
 // Pos is also the lane counter: uint64 where num_samples may pass 2^32.
-template <typename Pos, typename Out>
+template <typename Pos, typename Out, bool kDyn>
 __global__ void __launch_bounds__(THREADS)
     index_general_kernel(Out *__restrict__ out, LawParams P,
                          const uint32_t *__restrict__ seeds) {
-  __shared__ Schedules s;
+  // the schedules: fixed arrays, 16-byte aligned so that the unrolled
+  // round loop reads four constants a load, or past STATIC_ROUNDS the
+  // launch's dynamic shared memory
+  __shared__ __align__(16) uint32_t sched_fixed[kDyn ? 4 : 3 * STATIC_ROUNDS];
+  extern __shared__ uint32_t sched_dyn[];
   const Keys k = make_keys(P, seeds);
-  load_schedules(s, P, k);
+  const Schedules s = kDyn ? load_schedules(sched_dyn, P.rounds, P, k)
+                           : load_schedules(sched_fixed, STATIC_ROUNDS, P, k);
   __syncthreads();
   const Pos stride = (Pos)gridDim.x * blockDim.x;
   const Pos num_samples = (Pos)P.num_samples;
@@ -201,16 +225,19 @@ __global__ void __launch_bounds__(THREADS)
 // slot t / m, computed once per tile into `kid`, and only the inner
 // bijection remains per element.  num_samples < 2^31 (the gate), `tile` a
 // multiple of WARP in [WARP, TILE_MAX].
-template <typename Pos, typename Out>
+template <typename Pos, typename Out, bool kDyn>
 __global__ void __launch_bounds__(THREADS)
     index_amortized_kernel(Out *__restrict__ out, LawParams P, uint32_t m,
                            uint32_t body, uint32_t tile,
                            const uint32_t *__restrict__ seeds) {
-  __shared__ Schedules s;
+  // the schedules (16-byte aligned: see index_general_kernel), then the
   // window ids of the tile's slots: at most (tile - 1) / m + 2 of them
+  __shared__ __align__(16) uint32_t sched_fixed[kDyn ? 4 : 3 * STATIC_ROUNDS];
   __shared__ uint32_t kid[TILE_MAX + 2];
+  extern __shared__ uint32_t sched_dyn[];
   const Keys k = make_keys(P, seeds);
-  load_schedules(s, P, k);
+  const Schedules s = kDyn ? load_schedules(sched_dyn, P.rounds, P, k)
+                           : load_schedules(sched_fixed, STATIC_ROUNDS, P, k);
   __syncthreads();
   const bool permute = P.order_windows && P.nw > 1;
   const uint32_t num_samples = (uint32_t)P.num_samples;
@@ -268,7 +295,7 @@ LawParams make_params(uint64_t n, uint32_t window, uint32_t world,
 }
 
 // What every kernel refuses: n = 0, a window or a window count outside
-// [1, 2^31), a round count the shared schedules cannot hold.
+// [1, 2^31), a round count above MAX_ROUNDS.
 bool bad_config(uint64_t n, uint32_t window, int rounds) {
   return n == 0 || window == 0 || window > INT32_MAX_U ||
          n / window > INT32_MAX_U || rounds < 0 || rounds > MAX_ROUNDS;
@@ -295,9 +322,21 @@ int launch_general(bool wide, void *out, uint64_t n, uint32_t window,
   const LawParams P =
       make_params(n, window, world, num_samples, rank, seed_lo, seed_hi,
                   epoch, shuffle, order_windows, strided, rounds);
-  index_general_kernel<Pos, Out>
-      <<<grid_for(num_samples), THREADS, 0, (cudaStream_t)stream>>>(
-          (Out *)out, P, (const uint32_t *)seeds);
+  const size_t smem = schedule_bytes(rounds);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (smem == 0) {
+    index_general_kernel<Pos, Out, false>
+        <<<grid_for(num_samples), THREADS, 0, st>>>((Out *)out, P,
+                                                    (const uint32_t *)seeds);
+  } else {
+    if (smem > SMEM_DEFAULT)
+      cudaFuncSetAttribute(index_general_kernel<Pos, Out, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    index_general_kernel<Pos, Out, true>
+        <<<grid_for(num_samples), THREADS, smem, st>>>(
+            (Out *)out, P, (const uint32_t *)seeds);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -321,10 +360,21 @@ int launch_amortized(bool wide, void *out, uint64_t n, uint32_t window,
   uint64_t tile = (num_samples + cap - 1) / cap;
   tile = (tile + WARP - 1) / WARP * WARP;
   tile = tile < TILE_MAX ? tile : TILE_MAX;
-  index_amortized_kernel<Pos, Out>
-      <<<grid_cap((num_samples + tile - 1) / tile), THREADS, 0,
-         (cudaStream_t)stream>>>((Out *)out, P, m, body, (uint32_t)tile,
-                                 (const uint32_t *)seeds);
+  const unsigned grid = grid_cap((num_samples + tile - 1) / tile);
+  const size_t smem = schedule_bytes(rounds);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (smem == 0) {
+    index_amortized_kernel<Pos, Out, false><<<grid, THREADS, 0, st>>>(
+        (Out *)out, P, m, body, (uint32_t)tile, (const uint32_t *)seeds);
+  } else {
+    // the dynamic schedules beside the static window ids
+    if (smem + (TILE_MAX + 2) * sizeof(uint32_t) > SMEM_DEFAULT)
+      cudaFuncSetAttribute(index_amortized_kernel<Pos, Out, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    index_amortized_kernel<Pos, Out, true><<<grid, THREADS, smem, st>>>(
+        (Out *)out, P, m, body, (uint32_t)tile, (const uint32_t *)seeds);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -26,7 +26,17 @@ constexpr uint32_t C_BIT = 0x94D049BBu;
 constexpr uint32_t C_PAIR = 0x165667B1u;
 
 constexpr uint32_t INT32_MAX_U = 0x7FFFFFFFu;
-constexpr int MAX_ROUNDS = 64;
+// The most swap-or-not rounds any kernel takes (ops/cuda_kernel.py
+// MAX_ROUNDS is the same number): the index kernels hold three schedules of
+// `rounds` words in dynamic shared memory, 48 KB at 4,096 rounds beside the
+// amortized kernel's 16 KB of window ids, within the 227 KB a block may
+// use.  SPEC.md §2 cites ~102 and ~121 rounds for the production domains.
+constexpr int MAX_ROUNDS = 4096;
+// Up to this many rounds the index kernels keep their schedules in fixed
+// shared arrays (the compiler then addresses them as constants).
+constexpr int STATIC_ROUNDS = 64;
+// Shared memory a block gets without the opt-in attribute.
+constexpr size_t SMEM_DEFAULT = 48 * 1024;
 constexpr int THREADS = 256;
 constexpr int BLOCKS_PER_SM = 8;
 
@@ -69,13 +79,19 @@ __device__ __forceinline__ void load_round_keys(uint32_t *ks, uint32_t pair,
     ks[r] = round_key(pair, m, r);
 }
 
-// Swap-or-not keyed bijection on [0, m), decision key `key`, pairing
-// constants `ks` (SPEC.md §2; ops/core.py swap_or_not).
-__device__ __forceinline__ uint32_t swap_or_not(uint32_t x, uint32_t m,
-                                                const uint32_t *ks,
-                                                uint32_t key, int rounds) {
+// The decision key of a bijection as its rounds read it.
+__device__ __forceinline__ uint32_t decision_key2(uint32_t key) {
+  return mix32(key ^ C_BIT);
+}
+
+// Swap-or-not keyed bijection on [0, m) with the decision key already
+// mixed (`key2 = decision_key2(key)`), pairing constants `ks`: the round
+// loop alone, for callers that derive key2 once for many elements.
+__device__ __forceinline__ uint32_t swap_or_not_k2(uint32_t x, uint32_t m,
+                                                   const uint32_t *ks,
+                                                   uint32_t key2,
+                                                   int rounds) {
   if (m <= 1) return x;
-  const uint32_t key2 = mix32(key ^ C_BIT);
   for (int r = 0; r < rounds; ++r) {
     uint32_t partner = ks[r] + (m - x);
     partner = partner >= m ? partner - m : partner;
@@ -84,6 +100,38 @@ __device__ __forceinline__ uint32_t swap_or_not(uint32_t x, uint32_t m,
     x = (b & 1u) ? partner : x;
   }
   return x;
+}
+
+// Swap-or-not keyed bijection on [0, m), decision key `key`, pairing
+// constants `ks` (SPEC.md §2; ops/core.py swap_or_not).
+__device__ __forceinline__ uint32_t swap_or_not(uint32_t x, uint32_t m,
+                                                const uint32_t *ks,
+                                                uint32_t key, int rounds) {
+  if (m <= 1) return x;
+  return swap_or_not_k2(x, m, ks, decision_key2(key), rounds);
+}
+
+// Floor division by an invariant divisor d >= 1 as a multiply-high
+// (Granlund and Montgomery 1994, fig. 4.1): with l = ceil(log2 d), mult =
+// floor(2^N (2^l - d) / d) + 1, s1 = min(l, 1), s2 = max(l - 1, 0), every
+// N-bit n gives n / d = (t + ((n - t) >> s1)) >> s2, t = mulhi(n, mult).
+// The host computes (mult, s1, s2): ops/fastdiv.py.
+struct Magic32 {
+  uint32_t mult, s1, s2;
+};
+struct Magic64 {
+  uint64_t mult;
+  uint32_t s1, s2;
+};
+
+__device__ __forceinline__ uint32_t magic_div(uint32_t n, const Magic32 &d) {
+  const uint32_t t = __umulhi(n, d.mult);
+  return (t + ((n - t) >> d.s1)) >> d.s2;
+}
+
+__device__ __forceinline__ uint64_t magic_div(uint64_t n, const Magic64 &d) {
+  const uint64_t t = __umul64hi(n, d.mult);
+  return (t + ((n - t) >> d.s1)) >> d.s2;
 }
 
 // The resident blocks of the card: BLOCKS_PER_SM per SM.

@@ -17,12 +17,12 @@
 //                     one thread per row derives the row's head into shared
 //                     memory, then the whole block sweeps the rows' record
 //                     words, one thread per RUN consecutive words.
-//   shard_expand   -> one thread per output lane t, in the rank's stream
-//                     order: the row i with start_i <= t < start_i + m_i
-//                     (t / m for uniform sizes, else a binary search over
-//                     the inclusive prefix `ends`, which skips zero-size
-//                     rows), u = t - start_i, the §7.2 within-shard law at
-//                     u with the row's keys, plus the shard's offset.
+//   shard_expand   -> every output lane t, in the rank's stream order: the
+//                     row i with start_i <= t < start_i + m_i, u = t -
+//                     start_i, the §7.2 within-shard law at u with the
+//                     row's keys, plus the shard's offset.  Sequential mode
+//                     (no window: W <= 1 in every row) is a copy kernel that
+//                     reads no record.
 //
 // Row record (uint32, ROW_HEAD + 2*rounds words): ek, inner pair key, tail
 // key, body = nw*W_row (m where W_row <= 1), K_inner[rounds], K_tail[rounds]
@@ -30,17 +30,51 @@
 // W_row = m for the full in-shard shuffle, min(w, m) for a window w (w = 0
 // is sequential); W_row <= 1 leaves the row in storage order.
 //
-// Per lane, with W = W_row: u < body takes win = u / W (0 in full mode),
-// idx = win*W + swap_or_not(u mod W, W, K_inner, inner_key(ek, win)); a tail
-// lane takes idx = body + swap_or_not(u - body, m - body, K_tail, tk), the
-// tail key serving as decision and pairing key (shard_mode.py:422-425).
+// Per lane, with W = W_row: u < body takes win = u / W (0 where W = m: the
+// full shuffle, or m <= w), idx = win*W + swap_or_not(u mod W, W, K_inner,
+// inner_key(ek, win)); a tail lane takes idx = body + swap_or_not(u - body,
+// m - body, K_tail, tk), the tail key serving as decision and pairing key
+// (shard_mode.py:422-425).
 //
-// What bounds shard_expand: integer operations (one 24-round bijection per
-// lane, its inner key, and for mixed sizes ~log2(R) cached loads of the
-// binary search); each lane writes 4 or 8 bytes and reads a row record that
-// its neighbours share.  The row records live in a global [R, 4 + 2*rounds]
-// table read through the cache: a block of 256 lanes spans one row at
-// m = 1000, so the constants are read by the whole block from L1.
+// What bounds shard_expand: integer operations, one 24-round bijection per
+// lane (13 counted operations a round); each lane writes 4 or 8 bytes.  So
+// everything a lane does besides its round loop is overhead, and the first
+// design (one thread per lane) did a lot of it: a runtime division
+// t / m to find the row (a binary search over the global `ends`, ~17
+// dependent cached loads, for mixed sizes), a second one, u / W, in window
+// mode, the decision key (inner_key and key2: 21 operations) that a whole
+// row or window shares, the pairing constants read from global memory in
+// every round, and two dependent loads for the shard's offset.  It ran at
+// 63.8 % of its bound at S1 (100,000 x 1,000, world 8), 35 % in sequential
+// mode.  This design, on the H100:
+//
+// - Lane tiles.  A block walks tiles of `tile` lanes (the lanes over the
+//   resident blocks' whole rounds of tiles, rounded up to a warp, at most
+//   EXP_TILE_MAX = 4,096: every block walks as many tiles).  At a tile's
+//   start one thread finds its first row, by one division or one binary
+//   search over `ends`.
+// - The tile's rows in shared memory (stage_tile).  Up to STAGE_ROWS = 64
+//   rows, one thread each: the row's end and size, its shard's offset, body,
+//   the decision key2 of window 0 and of the tail, and with the block, the
+//   rows' pairing constants (2 * rounds words each, while SCHED_WORDS =
+//   3,072 hold them: 64 rows at 24 rounds) and, in window mode, the key2 of
+//   every window of w lanes the tile cuts (one warp scans the rows' window
+//   counts).  At S1 a tile of 3,968 lanes spans 4 to 5 rows.  Rows beyond
+//   the budget (tiles of tiny rows, or rounds past 1,536) are read from the
+//   record table per lane, as before, their row found by a binary search
+//   that starts past the staged rows.
+// - No runtime `/` or `%` per lane.  A staged lane's row is t / m as a
+//   multiply-high by a magic number (uniform sizes) or a binary search over
+//   at most 64 staged ends in shared memory (mixed sizes); u / w is a
+//   multiply-high too.  The host computes the magic numbers of m and w
+//   (ops/fastdiv.py); a row of m <= w is one window, so w is the only
+//   window divisor.
+// - The round loop is all the per-lane work that is left:
+//   swap_or_not_k2 takes the staged key2, and the constants come from
+//   shared memory.
+// - Sequential mode copies: a thread writes 4 lanes (int32; 2 int64) with
+//   one 16-byte store where they lie in one row, and no shard_row_keys
+//   launch precedes it (sampler/shard_mode.py _expand).
 //
 // What bounds shard_row_keys: the bytes of the table it writes, 4*(4 +
 // 2*rounds) per row (208 at 24 rounds: 20.8 MB at 100,000 rows, 6 us at
@@ -86,12 +120,6 @@ static_assert(RUN == ROW_HEAD, "a head unit is one run of words");
 __device__ __forceinline__ int64_t ld64(const int64_t *p) {
   return (int64_t)__ldg((const long long *)p);
 }
-
-struct ExpandParams {
-  uint64_t lanes, rows;
-  uint32_t m_uniform, w;
-  int full, rounds;
-};
 
 __global__ void __launch_bounds__(THREADS)
     shard_row_keys_kernel(uint32_t *__restrict__ rowtab,
@@ -164,6 +192,235 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ------------------------------------------------------------ shard_expand
+// Lanes of a tile: at most EXP_TILE_MAX, a multiple of WARP.
+constexpr uint32_t EXP_TILE_MAX = 4096;
+constexpr uint32_t WARP = 32;
+// Rows a tile stages at most (their heads; the scan of their window counts
+// is one warp's, two rows a thread).
+constexpr uint32_t STAGE_ROWS = 2 * WARP;
+// Pairing constants a tile stages at most (12 KB): 2 * rounds words a row,
+// 64 rows at 24 rounds, none past 1,536 rounds.
+constexpr uint32_t SCHED_WORDS = 3072;
+// Window keys a tile stages: a row cut to the tile holds at most
+// len / w + 2 windows of w >= 2 lanes, so a tile's staged rows hold at most
+// EXP_TILE_MAX / 2 + 2 * STAGE_ROWS.
+constexpr uint32_t WKEY_WORDS = EXP_TILE_MAX / 2 + 2 * STAGE_ROWS;
+
+struct ExpandParams {
+  uint64_t lanes, rows;
+  uint32_t m_uniform, w, tile;
+  int full, rounds;
+  Magic32 m32, w32;  // t / m_uniform (uint32 lanes), u / w
+  Magic64 m64;       // t / m_uniform (uint64 lanes)
+};
+
+__device__ __forceinline__ uint32_t div_m(uint32_t t, const ExpandParams &P) {
+  return magic_div(t, P.m32);
+}
+__device__ __forceinline__ uint64_t div_m(uint64_t t, const ExpandParams &P) {
+  return magic_div(t, P.m64);
+}
+
+// The row of lane t among rows [lo, hi]: t / m for uniform sizes (ends
+// null), else the first row whose inclusive end passes t (zero-size rows
+// share their predecessor's end and are never chosen).
+template <typename Lane>
+__device__ __forceinline__ Lane row_of(Lane t, const ExpandParams &P,
+                                       const int64_t *ends, Lane lo,
+                                       Lane hi) {
+  if (ends == nullptr) return div_m(t, P);
+  while (lo < hi) {
+    const Lane mid = lo + (hi - lo) / 2;
+    if ((Lane)ld64(ends + mid) > t)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// Warp-cooperative row_of over `ends` for a warp-uniform t: 32 probes a
+// step, so a search over R rows takes log32(R) dependent loads where one
+// thread's takes log2(R).  Every lane returns the row.
+template <typename Lane>
+__device__ __forceinline__ Lane warp_row_of(Lane t, const int64_t *ends,
+                                            Lane lo, Lane hi) {
+  const uint32_t lane = threadIdx.x & (WARP - 1);
+  while (lo < hi) {  // the row lies in [lo, hi]
+    const Lane step = (hi - lo + WARP - 2) / (WARP - 1);
+    const Lane k = lo + (Lane)lane * step;  // lane 31 probes hi or past it
+    const bool past = k >= hi || (Lane)ld64(ends + k) > t;
+    const uint32_t f = __ffs(__ballot_sync(0xFFFFFFFFu, past)) - 1;
+    const Lane kf = lo + (Lane)f * step;
+    lo = f == 0 ? lo : kf - step + 1;
+    hi = kf < hi ? kf : hi;
+  }
+  return lo;
+}
+
+// First lane of row i.
+template <typename Lane>
+__device__ __forceinline__ Lane row_start(Lane i, const ExpandParams &P,
+                                          const int64_t *ends) {
+  if (ends == nullptr) return i * (Lane)P.m_uniform;
+  return i ? (Lane)ld64(ends + i - 1) : (Lane)0;
+}
+
+// The rows of a tile as the block stages them (row j is row first + j).
+template <typename Lane>
+struct TileRows {
+  Lane end[STAGE_ROWS];      // exclusive end lane
+  int64_t off[STAGE_ROWS];   // the shard's first global index
+  uint32_t m[STAGE_ROWS], body[STAGE_ROWS];
+  uint32_t kin2[STAGE_ROWS];  // key2 of window 0 (full, or m <= w)
+  uint32_t kt2[STAGE_ROWS];   // key2 of the tail bijection
+  uint32_t ek[STAGE_ROWS];    // epoch key: the window keys derive from it
+  uint32_t wlo[STAGE_ROWS];   // first of the row's windows in the tile
+  uint32_t kb[STAGE_ROWS + 1];  // its window count, then their prefix
+  uint32_t wkb[STAGE_ROWS];   // kb - wlo: window win's key is wkey[wkb + win]
+  uint32_t sched[SCHED_WORDS];  // K_inner, K_tail of each staged row
+  uint32_t wkey[WKEY_WORDS];    // key2 of each staged window (w < m)
+  Lane first, stage_end;
+  uint32_t staged;
+};
+
+// Block-cooperative: the tile [a, b)'s first row, and its first `staged`
+// rows' heads (and, with `records`, their pairing constants and window
+// keys) into T.  Lanes in [a, T.stage_end) lie in staged rows; every
+// thread returns after a barrier.  `sched_rows`: how many rows' schedules
+// SCHED_WORDS holds.
+template <typename Lane>
+__device__ __forceinline__ void stage_tile(TileRows<Lane> &T, Lane a, Lane b,
+                                           const ExpandParams &P,
+                                           const int32_t *sids,
+                                           const int64_t *offsets,
+                                           const int64_t *ends,
+                                           const uint32_t *rowtab,
+                                           bool records, uint32_t sched_rows) {
+  const uint32_t R = (uint32_t)P.rounds;
+  const uint64_t stride = ROW_HEAD + 2 * (uint64_t)R;
+  if (threadIdx.x < WARP) {
+    const Lane r = ends == nullptr
+                       ? div_m(a, P)
+                       : warp_row_of<Lane>(a, ends, 0, (Lane)(P.rows - 1));
+    if (threadIdx.x == 0) T.first = r;
+  }
+  __syncthreads();
+  const Lane r0 = T.first;
+  const uint32_t j = threadIdx.x;
+  bool in_tile = false;
+  uint32_t nwin = 0;
+  if (j < STAGE_ROWS && (uint64_t)r0 + j < P.rows) {
+    const Lane i = r0 + j;
+    const Lane start = row_start<Lane>(i, P, ends);
+    in_tile = start < b;
+    if (in_tile) {
+      const Lane end =
+          ends == nullptr ? start + (Lane)P.m_uniform : (Lane)ld64(ends + i);
+      const uint32_t m = (uint32_t)(end - start);
+      T.end[j] = end;
+      T.m[j] = m;
+      T.off[j] = ld64(offsets + __ldg(sids + i));
+      const uint32_t W = P.full ? m : (P.w < m ? P.w : m);
+      uint32_t body = m;
+      if (records && W > 1) {
+        const uint32_t *row = rowtab + (uint64_t)i * stride;
+        const uint32_t ek = __ldg(row);
+        body = __ldg(row + 3);
+        T.ek[j] = ek;
+        T.kin2[j] = decision_key2(inner_key(ek, 0u));
+        T.kt2[j] = decision_key2(__ldg(row + 2));
+        if (!P.full && P.w < m) {  // windows of w: those the tile cuts
+          const Lane lo = a > start ? a : start;
+          const Lane hi = b < end ? b : end;
+          const uint32_t ulo = (uint32_t)(lo - start);
+          const uint32_t uhi = (uint32_t)(hi - start);
+          if (ulo < body) {
+            T.wlo[j] = magic_div(ulo, P.w32);
+            nwin = magic_div((uhi < body ? uhi : body) - 1, P.w32) -
+                   T.wlo[j] + 1;
+          }
+        }
+      }
+      T.body[j] = body;
+    }
+  }
+  if (j < STAGE_ROWS) T.kb[j] = nwin;
+  // in-tile rows are a prefix of the candidates: starts only grow
+  const uint32_t nr = (uint32_t)__syncthreads_count(in_tile);
+  if (threadIdx.x < WARP) {  // exclusive prefix of the window counts
+    const uint32_t l = threadIdx.x;
+    const uint32_t x0 = T.kb[2 * l], x1 = T.kb[2 * l + 1];
+    uint32_t inc = x0 + x1;
+    for (uint32_t d = 1; d < WARP; d *= 2) {
+      const uint32_t v = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+      if (l >= d) inc += v;
+    }
+    T.kb[2 * l] = inc - x0 - x1;
+    T.kb[2 * l + 1] = inc - x1;
+    if (l == WARP - 1) T.kb[STAGE_ROWS] = inc;
+  }
+  const uint32_t staged = nr < sched_rows ? nr : sched_rows;
+  __syncthreads();
+  if (records) {
+    for (uint32_t q = threadIdx.x; q < staged * 2 * R; q += blockDim.x) {
+      const uint32_t jj = q / (2 * R);
+      T.sched[q] = __ldg(rowtab + (uint64_t)(r0 + jj) * stride + ROW_HEAD +
+                         (q - jj * 2 * R));
+    }
+    if (!P.full && threadIdx.x < staged) T.wkb[j] = T.kb[j] - T.wlo[j];
+    if (!P.full)
+      for (uint32_t q = threadIdx.x; q < T.kb[staged]; q += blockDim.x) {
+        uint32_t lo = 0, hi = staged - 1;  // the last row with kb <= q
+        while (lo < hi) {
+          const uint32_t mid = (lo + hi + 1) / 2;
+          if (T.kb[mid] <= q)
+            lo = mid;
+          else
+            hi = mid - 1;
+        }
+        T.wkey[q] =
+            decision_key2(inner_key(T.ek[lo], T.wlo[lo] + q - T.kb[lo]));
+      }
+  }
+  if (threadIdx.x == 0) {
+    T.staged = staged;
+    T.stage_end = staged == 0 ? a : (T.end[staged - 1] < b ? T.end[staged - 1]
+                                                            : b);
+  }
+  __syncthreads();
+}
+
+// Row j of the staged ones that holds lane t (T.first <= row < stage_end).
+template <typename Lane>
+__device__ __forceinline__ uint32_t staged_row(const TileRows<Lane> &T,
+                                               Lane t, const ExpandParams &P,
+                                               const int64_t *ends) {
+  if (ends == nullptr) return (uint32_t)(div_m(t, P) - T.first);
+  uint32_t lo = 0, hi = T.staged - 1;  // the first staged row ending past t
+  while (lo < hi) {
+    const uint32_t mid = (lo + hi) / 2;
+    if (T.end[mid] > t)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// Tile of a launch over `lanes` lanes: the lanes over the resident blocks'
+// whole rounds of tiles, rounded up to a warp, at most EXP_TILE_MAX, so
+// that every block walks the same number of tiles.
+inline uint32_t expand_tile(uint64_t lanes) {
+  const uint64_t cap = resident_blocks();
+  const uint64_t per_round = cap * EXP_TILE_MAX;
+  const uint64_t tiles_per_block = (lanes + per_round - 1) / per_round;
+  uint64_t tile = (lanes + cap * tiles_per_block - 1) / (cap * tiles_per_block);
+  tile = (tile + WARP - 1) / WARP * WARP;
+  return (uint32_t)(tile < EXP_TILE_MAX ? tile : EXP_TILE_MAX);
+}
+
 // Lane: lane counter and row arithmetic (uint64 where the lanes reach 2^31);
 // Out: index type (int64 where the whole shard space sums past 2^31).
 template <typename Lane, typename Out>
@@ -173,48 +430,133 @@ __global__ void __launch_bounds__(THREADS)
                         const int64_t *__restrict__ offsets,
                         const int64_t *__restrict__ ends,
                         const uint32_t *__restrict__ rowtab, ExpandParams P) {
-  const uint64_t stride = ROW_HEAD + 2 * (uint64_t)P.rounds;
-  const Lane step = (Lane)gridDim.x * blockDim.x;
-  for (Lane t = (Lane)blockIdx.x * blockDim.x + threadIdx.x; t < (Lane)P.lanes;
-       t += step) {
-    Lane i, start;
-    uint32_t m;
-    if (ends == nullptr) {
-      i = t / (Lane)P.m_uniform;
-      start = i * (Lane)P.m_uniform;
-      m = P.m_uniform;
-    } else {
-      // the first row whose inclusive end passes t: zero-size rows share
-      // their predecessor's end and are never chosen
-      Lane a = 0, b = (Lane)(P.rows - 1);
-      while (a < b) {
-        const Lane mid = a + (b - a) / 2;
-        if ((Lane)ld64(ends + mid) > t)
-          b = mid;
-        else
-          a = mid + 1;
+  __shared__ TileRows<Lane> T;
+  const uint32_t R = (uint32_t)P.rounds;
+  const uint64_t stride = ROW_HEAD + 2 * (uint64_t)R;
+  const uint32_t sched_rows = R == 0 ? STAGE_ROWS : SCHED_WORDS / (2 * R);
+  const Lane lanes = (Lane)P.lanes;
+  // block-uniform loop: every thread reaches the barriers equally often
+  for (Lane a = (Lane)blockIdx.x * P.tile; a < lanes;
+       a += (Lane)gridDim.x * P.tile) {
+    const Lane b = lanes - a < (Lane)P.tile ? lanes : a + (Lane)P.tile;
+    stage_tile<Lane>(T, a, b, P, sids, offsets, ends, rowtab, true,
+                     sched_rows);
+    const Lane stage_end = T.stage_end;
+    for (Lane t = a + threadIdx.x; t < b; t += blockDim.x) {
+      uint32_t idx;
+      int64_t off;
+      if (t < stage_end) {  // the row from shared memory
+        const uint32_t j = staged_row<Lane>(T, t, P, ends);
+        const uint32_t m = T.m[j];
+        const uint32_t u = (uint32_t)(t - (T.end[j] - (Lane)m));
+        const uint32_t W = P.full ? m : (P.w < m ? P.w : m);
+        const uint32_t body = T.body[j];
+        // one round loop for body and tail lanes, so that a warp across a
+        // row's tail runs it once: its domain, key2, constants and base
+        const uint32_t *ks = T.sched + j * 2 * R;
+        uint32_t x = u, dom = 1, key2 = 0, base = 0;
+        if (W > 1 && u >= body) {
+          x = u - body;
+          dom = m - body;
+          key2 = T.kt2[j];
+          ks += R;
+          base = body;
+        } else if (W > 1 && W == m) {  // one window: full, or m <= w
+          dom = W;
+          key2 = T.kin2[j];
+        } else if (W > 1) {
+          const uint32_t win = magic_div(u, P.w32);
+          base = win * W;
+          x = u - base;
+          dom = W;
+          key2 = T.wkey[T.wkb[j] + win];
+        }
+        idx = base + swap_or_not_k2(x, dom, ks, key2, R);
+        off = T.off[j];
+      } else {  // a row past the staged budget: its record, as read
+        const Lane i = row_of<Lane>(t, P, ends, T.first + T.staged,
+                                    (Lane)(P.rows - 1));
+        const Lane start = row_start<Lane>(i, P, ends);
+        const uint32_t m = ends == nullptr
+                               ? P.m_uniform
+                               : (uint32_t)((Lane)ld64(ends + i) - start);
+        const uint32_t u = (uint32_t)(t - start);
+        const uint32_t W = P.full ? m : (P.w < m ? P.w : m);
+        idx = u;
+        if (W > 1) {
+          const uint32_t *row = rowtab + (uint64_t)i * stride;
+          const uint32_t body = __ldg(row + 3);
+          if (u < body) {
+            const uint32_t win = W == m ? 0u : magic_div(u, P.w32);
+            idx = win * W + swap_or_not(u - win * W, W, row + ROW_HEAD,
+                                        inner_key(__ldg(row), win), R);
+          } else {
+            idx = body + swap_or_not(u - body, m - body, row + ROW_HEAD + R,
+                                     __ldg(row + 2), R);
+          }
+        }
+        off = ld64(offsets + __ldg(sids + i));
       }
-      i = a;
-      start = i ? (Lane)ld64(ends + i - 1) : (Lane)0;
-      m = (uint32_t)((Lane)ld64(ends + i) - start);
+      out[t] = (Out)(off + (int64_t)idx);
     }
-    const uint32_t u = (uint32_t)(t - start);
-    const uint32_t W = P.full ? m : (P.w < m ? P.w : m);
-    uint32_t idx = u;
-    if (W > 1) {
-      const uint32_t *row = rowtab + (uint64_t)i * stride;
-      const uint32_t body = __ldg(row + 3);
-      if (u < body) {
-        const uint32_t win = P.full ? 0u : u / W;
-        idx = win * W + swap_or_not(u - win * W, W, row + ROW_HEAD,
-                                    inner_key(__ldg(row), win), P.rounds);
-      } else {
-        idx = body + swap_or_not(u - body, m - body,
-                                 row + ROW_HEAD + P.rounds, __ldg(row + 2),
-                                 P.rounds);
+    __syncthreads();  // every lane has read T before the next tile's
+  }
+}
+
+// Store of VEC consecutive outputs, 16 bytes.
+__device__ __forceinline__ void store16(int32_t *p, int64_t v) {
+  *reinterpret_cast<int4 *>(p) =
+      make_int4((int32_t)v, (int32_t)(v + 1), (int32_t)(v + 2),
+                (int32_t)(v + 3));
+}
+__device__ __forceinline__ void store16(int64_t *p, int64_t v) {
+  *reinterpret_cast<longlong2 *>(p) = make_longlong2(v, v + 1);
+}
+
+// Sequential mode (no window, W <= 1 in every row): out[t] = offset of t's
+// shard + t's offset in it.  A copy: no record is read, and each thread
+// writes VEC = 16 / sizeof(Out) consecutive lanes with one 16-byte store
+// where they lie in one row (tiles start at multiples of WARP, so every
+// group of VEC is aligned), else lane by lane.
+template <typename Lane, typename Out>
+__global__ void __launch_bounds__(THREADS)
+    shard_copy_kernel(Out *__restrict__ out, const int32_t *__restrict__ sids,
+                      const int64_t *__restrict__ offsets,
+                      const int64_t *__restrict__ ends, ExpandParams P) {
+  constexpr uint32_t VEC = 16 / sizeof(Out);
+  __shared__ TileRows<Lane> T;
+  const Lane lanes = (Lane)P.lanes;
+  for (Lane a = (Lane)blockIdx.x * P.tile; a < lanes;
+       a += (Lane)gridDim.x * P.tile) {
+    const Lane b = lanes - a < (Lane)P.tile ? lanes : a + (Lane)P.tile;
+    stage_tile<Lane>(T, a, b, P, sids, offsets, ends, nullptr, false,
+                     STAGE_ROWS);
+    const Lane stage_end = T.stage_end;
+    for (Lane g = a + VEC * threadIdx.x; g < b; g += VEC * blockDim.x) {
+      if (g + VEC <= stage_end) {
+        const uint32_t j = staged_row<Lane>(T, g, P, ends);
+        if (g + VEC <= T.end[j]) {  // one row: one store
+          store16(out + g, T.off[j] + (int64_t)(g - (T.end[j] - T.m[j])));
+          continue;
+        }
+      }
+      for (Lane t = g; t < g + VEC && t < b; ++t) {
+        Lane start;
+        int64_t off;
+        if (t < stage_end) {
+          const uint32_t j = staged_row<Lane>(T, t, P, ends);
+          start = T.end[j] - (Lane)T.m[j];
+          off = T.off[j];
+        } else {
+          const Lane i = row_of<Lane>(t, P, ends, T.first + T.staged,
+                                      (Lane)(P.rows - 1));
+          start = row_start<Lane>(i, P, ends);
+          off = ld64(offsets + __ldg(sids + i));
+        }
+        out[t] = (Out)(off + (int64_t)(t - start));
       }
     }
-    out[t] = (Out)(ld64(offsets + __ldg(sids + i)) + (int64_t)idx);
+    __syncthreads();
   }
 }
 
@@ -222,9 +564,15 @@ template <typename Lane, typename Out>
 void launch_expand(void *out, const void *sids, const void *offsets,
                    const void *ends, const void *rowtab,
                    const ExpandParams &P, cudaStream_t stream) {
-  shard_expand_kernel<Lane, Out><<<grid_for(P.lanes), THREADS, 0, stream>>>(
-      (Out *)out, (const int32_t *)sids, (const int64_t *)offsets,
-      (const int64_t *)ends, (const uint32_t *)rowtab, P);
+  const unsigned grid = grid_cap((P.lanes + P.tile - 1) / P.tile);
+  if (rowtab == nullptr)
+    shard_copy_kernel<Lane, Out><<<grid, THREADS, 0, stream>>>(
+        (Out *)out, (const int32_t *)sids, (const int64_t *)offsets,
+        (const int64_t *)ends, P);
+  else
+    shard_expand_kernel<Lane, Out><<<grid, THREADS, 0, stream>>>(
+        (Out *)out, (const int32_t *)sids, (const int64_t *)offsets,
+        (const int64_t *)ends, (const uint32_t *)rowtab, P);
 }
 
 }  // namespace
@@ -250,23 +598,33 @@ extern "C" int psds_shard_row_keys(void *rowtab, void *m_of, const void *sids,
 }
 
 // `ends` (nullable): int64 [rows], the inclusive prefix of the rows' sizes;
-// null means every row has `m_uniform` lanes.
+// null means every row has `m_uniform` lanes.  (m_mult, m_s1, m_s2) divide
+// by m_uniform in the lane width (64 bits where lanes > 2^31 - 1, else 32),
+// (w_mult, w_s1, w_s2) by w (32 bits): ops/fastdiv.py.  `rowtab` null is
+// sequential mode (not full, w <= 1), which reads no record.
 extern "C" int psds_shard_expand(void *out, const void *sids,
                                  const void *offsets, const void *ends,
                                  const void *rowtab, uint64_t lanes,
-                                 uint64_t rows, uint32_t m_uniform, uint32_t w,
-                                 int full, int rounds, int wide_out,
-                                 void *stream) {
+                                 uint64_t rows, uint32_t m_uniform,
+                                 uint64_t m_mult, uint32_t m_s1,
+                                 uint32_t m_s2, uint32_t w, uint32_t w_mult,
+                                 uint32_t w_s1, uint32_t w_s2, int full,
+                                 int rounds, int wide_out, void *stream) {
   if (lanes == 0 || rows == 0 || rounds < 0 || rounds > MAX_ROUNDS ||
-      (ends == nullptr && (m_uniform == 0 || lanes != rows * m_uniform)))
+      (ends == nullptr && (m_uniform == 0 || lanes != rows * m_uniform)) ||
+      ((rowtab == nullptr) != (!full && w <= 1)))
     return (int)cudaErrorInvalidValue;
   ExpandParams P;
   P.lanes = lanes;
   P.rows = rows;
   P.m_uniform = m_uniform;
   P.w = w;
+  P.tile = expand_tile(lanes);
   P.full = full;
   P.rounds = rounds;
+  P.m32 = Magic32{(uint32_t)m_mult, m_s1, m_s2};
+  P.m64 = Magic64{m_mult, m_s1, m_s2};
+  P.w32 = Magic32{w_mult, w_s1, w_s2};
   const cudaStream_t st = (cudaStream_t)stream;
   const bool wide_lane = lanes > INT32_MAX_U;
   if (wide_lane && wide_out)

@@ -20,7 +20,8 @@ index_amortized_wide  ``epoch_indices_amortized_ref``      ``ops/xla.py``
                                                            and ``_window_order_ids``
 mixture_source_keys   ``mixture_source_keys_ref``          ``ops/mixture.py``
                                                            ``_fused_mixture_eval``
-                                                           (its [S] key vectors)
+                                                           (its [S] key vectors,
+                                                           past the fold)
 mixture_fused         ``mixture_fused_ref`` (the fused     ``ops/mixture.py``
                       evaluator of ``ops/mixture.py``)     ``_fused_mixture_eval``
 shard_row_keys        ``shard_row_keys_ref``               ``sampler/shard_mode.py``
@@ -36,7 +37,13 @@ shard_expand          ``shard_expand_ref``                 ``sampler/shard_mode.
 two ``_wide`` index kernels serve index spaces n >= 2^31 with int64 output;
 the others take n < 2^31 and write int32.  Each wrapper refuses the other
 width, so a wide config is never narrowed.  ``mixture_fused`` takes uint32
-or uint64 positions and writes int32 or int64 ids, by the mixture's sizes.
+or uint64 positions and writes int32 or int64 ids, by the mixture's sizes;
+while a spec's keys and source table take at most ``FOLD_WORDS_CAP`` words
+(``mixture_folds``) a regen lets it derive the keys itself, one launch;
+past that ``mixture_source_keys`` writes them first.
+
+Every kernel takes 0 to ``MAX_ROUNDS`` (4,096) swap-or-not rounds; a
+wrapper raises ``ValueError`` above that.
 
 The key of a launch is ``seed`` and ``epoch`` as scalars, or ``triple``:
 an int32[3] tensor on the launch device holding the uint32 bits of
@@ -68,7 +75,7 @@ import subprocess
 import numpy as np
 import torch
 
-from . import core, mixture, shard
+from . import core, fastdiv, mixture, shard
 
 _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
@@ -83,8 +90,17 @@ _BUILD_DIR = os.path.join(_CSRC, "build")
 #: -Xptxas -v records registers and spills in ``build_log``
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: the kernels keep the per-round pairing constants in fixed shared arrays
-MAX_ROUNDS = 64
+#: the most rounds a kernel takes (``csrc/law.cuh`` MAX_ROUNDS): the index
+#: kernels' three schedules of 4,096 words in one block's shared memory
+MAX_ROUNDS = 4096
+#: words (keys + source table) that ``mixture_fused`` stages in shared
+#: memory at most (``csrc/mixture_kernels.cu`` STAGE_WORDS_CAP): it can
+#: derive its keys itself only then
+STAGE_WORDS_CAP = 12288
+#: staged words at most for which a regen folds the key derivation into
+#: ``mixture_fused``: on the H100 the fold gained at 245 and 488 words and
+#: lost at 974 (``chip_smoke.py``; PERF.md §6)
+FOLD_WORDS_CAP = 576
 
 #: kernel launches per wrapper (reset with ``reset_launches``)
 launches = {"index_general": 0, "index_amortized": 0,
@@ -197,7 +213,8 @@ def _load(name: str) -> ctypes.CDLL:
             lib.psds_shard_row_keys.argtypes = [ptr, ptr, ptr, u64, ptr, u32,
                                                 i32, i32, *keys, ptr]
             lib.psds_shard_expand.argtypes = [ptr, ptr, ptr, ptr, ptr, u64,
-                                              u64, u32, u32, i32, i32, i32,
+                                              u64, u32, u64, u32, u32, u32,
+                                              u32, u32, u32, i32, i32, i32,
                                               ptr]
         else:
             fns = (lib.psds_mixture_source_keys, lib.psds_mixture_fused)
@@ -205,7 +222,7 @@ def _load(name: str) -> ctypes.CDLL:
                                                      *keys, ptr]
             lib.psds_mixture_fused.argtypes = [
                 ptr, ptr, u64, u64, u64, i32, u32, i32, ptr, ptr, ptr, ptr,
-                i32, i32, i32, i32, i32, i32, ptr,
+                *keys, i32, i32, i32, i32, i32, i32, ptr,
             ]
         for fn in fns:
             fn.restype = i32
@@ -272,17 +289,23 @@ def _check_width(n: int, wide: bool) -> None:
         )
 
 
+def _check_rounds(rounds: int) -> None:
+    """The kernels take 0 to MAX_ROUNDS rounds; more is refused."""
+    if not 0 <= rounds <= MAX_ROUNDS:
+        raise ValueError(
+            f"rounds must be in [0, {MAX_ROUNDS}] on the card, got {rounds}")
+
+
 def _check_kernel_args(n: int, window: int, world: int, rounds: int,
                        wide: bool) -> None:
-    """What the kernels' arguments and fixed schedules can carry, and the
-    width of the index space each kernel takes."""
+    """What the kernels' arguments can carry, and the width of the index
+    space each kernel takes."""
     _check_width(n, wide)
     for name, v in (("window", window), ("world", world)):
         if not 1 <= v <= core.INT32_MAX:
             raise ValueError(f"{name} must be in [1, 2^31), got {v}")
     core.check_index_space(n, window)
-    if not 0 <= rounds <= MAX_ROUNDS:
-        raise ValueError(f"rounds must be in [0, {MAX_ROUNDS}], got {rounds}")
+    _check_rounds(rounds)
 
 
 # ---------------------------------------------------------------- plain
@@ -525,6 +548,19 @@ def mixture_key_words(spec, rounds: int) -> int:
     return 2 + spec.num_sources * (1 + 3 * int(rounds))
 
 
+def _staged_words(spec, rounds: int) -> int:
+    """Words every block of ``mixture_fused`` stages: the keys buffer and
+    the source table (8 words a source)."""
+    return mixture_key_words(spec, rounds) + 8 * spec.num_sources
+
+
+def mixture_folds(spec, rounds: int) -> bool:
+    """Whether a regen of this spec lets ``mixture_fused`` derive the keys
+    itself (one launch) rather than launch ``mixture_source_keys`` first:
+    while its staged words are at most ``FOLD_WORDS_CAP``."""
+    return _staged_words(spec, rounds) <= FOLD_WORDS_CAP
+
+
 def mixture_source_keys_ref(spec, seed, epoch, *,
                             rounds: int = core.DEFAULT_ROUNDS,
                             device=None) -> torch.Tensor:
@@ -567,8 +603,7 @@ def mixture_source_keys(spec, seed, epoch, *,
     if device_kind(device) == "cpu":
         return mixture_source_keys_ref(spec, seed_p, epoch_p, rounds=rounds,
                                        device=device)
-    if not 0 <= rounds <= MAX_ROUNDS:
-        raise ValueError(f"rounds must be in [0, {MAX_ROUNDS}], got {rounds}")
+    _check_rounds(rounds)
     lib = _load("mixture")
     _pattern, _prefix, src = mixture_tables(spec, device)
     keys = torch.empty(mixture_key_words(spec, rounds), dtype=torch.int32,
@@ -594,20 +629,23 @@ def _check_lane_source(rank, world, num_samples, positions) -> None:
         raise ValueError("pass positions, or rank, world and num_samples")
 
 
-def mixture_fused_ref(keys: torch.Tensor, spec, seed, epoch, *, rank=None,
-                      world=None, num_samples=None, partition="strided",
-                      positions=None, wide_pos: bool, shuffle: bool = True,
+def mixture_fused_ref(keys, spec, seed, epoch, *, rank=None, world=None,
+                      num_samples=None, partition="strided", positions=None,
+                      wide_pos: bool, shuffle: bool = True,
                       order_windows: bool = True,
-                      rounds: int = core.DEFAULT_ROUNDS) -> torch.Tensor:
-    """The mixture stream at the lanes' positions on ``keys``' device: the
-    fused per-lane evaluator of ``ops/mixture.py`` (the masked loop for an
-    unshuffled stream, whose law is the identity per source)."""
+                      rounds: int = core.DEFAULT_ROUNDS,
+                      device=None) -> torch.Tensor:
+    """The mixture stream at the lanes' positions on ``keys``' device (or
+    ``device`` when ``keys`` is None, the folded keys): the fused per-lane
+    evaluator of ``ops/mixture.py`` (the masked loop for an unshuffled
+    stream, whose law is the identity per source)."""
     _check_lane_source(rank, world, num_samples, positions)
+    dev = torch.device(device if keys is None else keys.device)
     if positions is None:
         p = mixture.rank_stream_positions(spec, rank, world, num_samples,
-                                          partition, wide_pos, keys.device)
+                                          partition, wide_pos, dev)
     else:
-        p = torch.as_tensor(positions).to(keys.device, torch.int64)
+        p = torch.as_tensor(positions).to(dev, torch.int64)
     return mixture.mixture_stream_at_generic(
         p, spec, seed, epoch, shuffle=shuffle,
         order_windows=order_windows, rounds=rounds, big_positions=wide_pos,
@@ -615,35 +653,44 @@ def mixture_fused_ref(keys: torch.Tensor, spec, seed, epoch, *, rank=None,
     )
 
 
-def mixture_fused(keys: torch.Tensor, spec, seed, epoch, *, rank=None,
-                  world=None, num_samples=None, partition="strided",
-                  positions=None, wide_pos: bool, shuffle: bool = True,
+def mixture_fused(keys, spec, seed, epoch, *, rank=None, world=None,
+                  num_samples=None, partition="strided", positions=None,
+                  wide_pos: bool, shuffle: bool = True,
                   order_windows: bool = True,
-                  rounds: int = core.DEFAULT_ROUNDS,
+                  rounds: int = core.DEFAULT_ROUNDS, device="cuda",
                   triple=None) -> torch.Tensor:
-    """Mixture ids on ``keys``' device, one lane per position: the rank's
-    own positions (``rank``, ``world``, ``num_samples``, ``partition``) or
-    an int64 ``positions`` tensor on that device.  ``keys`` is this
-    regen's ``mixture_source_keys`` buffer; ``wide_pos`` selects uint64
-    position math.  int32 ids, or int64 when the sources total 2^31 or
-    more.  Takes only mixtures whose sources are all below 2^31."""
+    """Mixture ids, one lane per position: the rank's own positions
+    (``rank``, ``world``, ``num_samples``, ``partition``) or an int64
+    ``positions`` tensor on the launch device.  ``keys`` is this regen's
+    ``mixture_source_keys`` buffer, and its device the launch's; or None,
+    and the kernel derives the keys itself from the scalars or ``triple``
+    (specs whose keys it stages), on ``device``.  ``wide_pos`` selects
+    uint64 position math.  int32 ids, or int64 when the sources total 2^31
+    or more.  Takes only mixtures whose sources are all below 2^31."""
     seed_p, epoch_p = _plain_keys(seed, epoch, triple)
-    if device_kind(keys.device) == "cpu":
+    dev = torch.device(device if keys is None else keys.device)
+    if device_kind(dev) == "cpu":
         return mixture_fused_ref(
             keys, spec, seed_p, epoch_p, rank=rank, world=world,
             num_samples=num_samples, partition=partition,
             positions=positions, wide_pos=wide_pos, shuffle=shuffle,
-            order_windows=order_windows, rounds=rounds)
+            order_windows=order_windows, rounds=rounds, device=dev)
     if not spec.fused_applies():
         raise ValueError(
             "the mixture kernel takes sources below 2^31; larger sources "
             "take the masked evaluator (fused=False)"
         )
-    if not 0 <= rounds <= MAX_ROUNDS:
-        raise ValueError(f"rounds must be in [0, {MAX_ROUNDS}], got {rounds}")
+    _check_rounds(rounds)
     if spec.block > core.INT32_MAX:
         raise ValueError(f"block must be < 2^31, got {spec.block}")
-    if (keys.dtype != torch.int32 or not keys.is_contiguous()
+    if keys is None:
+        if _staged_words(spec, rounds) > STAGE_WORDS_CAP:
+            raise ValueError(
+                f"{spec.num_sources} sources at {rounds} rounds take more "
+                f"than {STAGE_WORDS_CAP} staged words: pass the "
+                "mixture_source_keys buffer"
+            )
+    elif (keys.dtype != torch.int32 or not keys.is_contiguous()
             or keys.numel() != mixture_key_words(spec, rounds)):
         raise ValueError(
             "keys must be the contiguous int32 buffer of "
@@ -657,12 +704,14 @@ def mixture_fused(keys: torch.Tensor, spec, seed, epoch, *, rank=None,
     if positions is not None:
         if not (isinstance(positions, torch.Tensor)
                 and positions.dtype == torch.int64
-                and positions.device == keys.device
+                and positions.device.type == "cuda"
+                and (keys is None or positions.device == keys.device)
                 and positions.is_contiguous() and positions.dim() == 1):
             raise ValueError(
                 f"positions must be a contiguous 1-D int64 tensor on "
-                f"{keys.device}"
+                f"{dev if keys is None else keys.device}"
             )
+        dev = positions.device
         lanes, rank, world = positions.numel(), 0, 1
     else:
         if not 0 <= rank < world:
@@ -672,20 +721,24 @@ def mixture_fused(keys: torch.Tensor, spec, seed, epoch, *, rank=None,
         raise ValueError(
             f"{lanes} lanes need uint64 positions (wide_pos=True)"
         )
-    out = torch.empty(lanes, dtype=spec.out_dtype(), device=keys.device)
+    out = torch.empty(lanes, dtype=spec.out_dtype(), device=dev)
     if lanes == 0:
         return out
+    # the scalars (or the triple) are read only where the keys are derived
+    lo, hi, ep, seeds = ((0, 0, 0, None) if keys is not None
+                         else _launch_keys(seed, epoch, triple, out.device))
     lib = _load("mixture")
-    pattern, prefix, src = mixture_tables(spec, keys.device)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    pattern, prefix, src = mixture_tables(spec, out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
     launches["mixture_fused"] += 1
     _check("mixture_fused", lib.psds_mixture_fused(
         out.data_ptr(), None if positions is None else positions.data_ptr(),
         lanes, rank, world, int(partition == "strided"), spec.block,
         spec.num_sources, pattern.data_ptr(), prefix.data_ptr(),
-        src.data_ptr(), keys.data_ptr(), rounds, int(bool(shuffle)),
-        int(bool(order_windows)), int(spec.rotated(shuffle)),
-        int(bool(wide_pos)), int(spec.out_dtype() == torch.int64), stream,
+        src.data_ptr(), None if keys is None else keys.data_ptr(), lo, hi,
+        ep, seeds, rounds, int(bool(shuffle)), int(bool(order_windows)),
+        int(spec.rotated(shuffle)), int(bool(wide_pos)),
+        int(spec.out_dtype() == torch.int64), stream,
     ))
     return out
 
@@ -703,8 +756,7 @@ def _check_shard_args(sids: torch.Tensor, device: torch.device, w: int,
             f"shard ids must be a contiguous 1-D int32 tensor on {device}")
     if not 0 <= w <= core.INT32_MAX:
         raise ValueError(f"window must be in [0, 2^31), got {w}")
-    if not 0 <= rounds <= MAX_ROUNDS:
-        raise ValueError(f"rounds must be in [0, {MAX_ROUNDS}], got {rounds}")
+    _check_rounds(rounds)
 
 
 def shard_row_keys(sids: torch.Tensor, tables, seed, epoch, *, full: bool,
@@ -739,23 +791,28 @@ def shard_row_keys(sids: torch.Tensor, tables, seed, epoch, *, full: bool,
     return rowtab, m_of
 
 
-def shard_expand(rowtab: torch.Tensor, sids: torch.Tensor, tables,
+def shard_expand(rowtab, sids: torch.Tensor, tables,
                  ends: "torch.Tensor | None", *, lanes: int, full: bool,
                  w: int, rounds: int = core.DEFAULT_ROUNDS) -> torch.Tensor:
-    """The expansion of the shard stream ``sids`` on ``rowtab``'s device
+    """The expansion of the shard stream ``sids`` on ``sids``' device
     (``shard_expand_ref``): ``lanes`` global sample indices in stream
     order, int32, or int64 when the whole shard space sums past 2^31.
-    ``ends`` is the inclusive prefix of the rows' sizes (int64 [R]), or
-    None when every shard has ``tables.m_uniform`` samples."""
+    ``rowtab`` is the ``shard_row_keys`` records of ``sids``; sequential
+    mode (``shard.sequential``) reads none and takes None.  ``ends`` is the
+    inclusive prefix of the rows' sizes (int64 [R]), or None when every
+    shard has ``tables.m_uniform`` samples."""
     kw = dict(lanes=lanes, full=full, w=w, rounds=rounds)
-    if device_kind(rowtab.device) == "cpu":
-        return shard_expand_ref(rowtab, sids, tables.dev_offsets, ends,
+    seq = shard.sequential(full, w)
+    if device_kind(sids.device) == "cpu":
+        return shard_expand_ref(None if seq else rowtab, sids,
+                                tables.dev_offsets, ends,
                                 m_uniform=tables.m_uniform,
                                 out_dtype=tables.out_dtype, **kw)
     _check_shard_args(sids, tables.device, w, rounds)
     rows = sids.numel()
-    if not (rowtab.dtype == torch.int32 and rowtab.is_contiguous()
-            and rowtab.device == sids.device
+    if not seq and not (
+            isinstance(rowtab, torch.Tensor) and rowtab.dtype == torch.int32
+            and rowtab.is_contiguous() and rowtab.device == sids.device
             and rowtab.numel() == rows * shard.row_words(rounds)):
         raise ValueError("rowtab must be the shard_row_keys records of sids "
                          "for this round count")
@@ -770,13 +827,18 @@ def shard_expand(rowtab: torch.Tensor, sids: torch.Tensor, tables,
     out = torch.empty(lanes, dtype=tables.out_dtype, device=sids.device)
     if lanes == 0:
         return out
+    # t / m in the kernel's lane width (uint64 past 2^31 - 1 lanes), u / w
+    m_magic = fastdiv.magic(tables.m_uniform or 1,
+                            64 if lanes > core.INT32_MAX else 32)
+    w_magic = fastdiv.magic(max(w, 1))
     lib = _load("shard")
     stream = torch.cuda.current_stream(sids.device).cuda_stream
     launches["shard_expand"] += 1
     _check("shard_expand", lib.psds_shard_expand(
         out.data_ptr(), sids.data_ptr(), tables.dev_offsets.data_ptr(),
-        None if ends is None else ends.data_ptr(), rowtab.data_ptr(), lanes,
-        rows, tables.m_uniform or 0, w, int(full), rounds,
+        None if ends is None else ends.data_ptr(),
+        None if seq else rowtab.data_ptr(), lanes, rows,
+        tables.m_uniform or 0, *m_magic, w, *w_magic, int(full), rounds,
         int(tables.out_dtype == torch.int64), stream,
     ))
     return out

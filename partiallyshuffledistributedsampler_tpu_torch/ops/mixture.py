@@ -29,8 +29,10 @@ not carried over.
 Entry points: ``mixture_epoch_indices_cuda``, ``mixture_stream_at_cuda``
 and ``mixture_elastic_indices_cuda`` run on the card by default (their
 ``_cpu`` twins on the host).  On a CUDA device every config whose sources
-are all below 2^31 launches the kernels (``mixture_source_keys``, then
-``mixture_fused``).  Two routes run the masked torch evaluator on the
+are all below 2^31 launches the kernels: ``mixture_fused`` alone, which
+derives the per-source keys itself while they are few
+(``cuda_kernel.mixture_folds``), else ``mixture_source_keys`` then
+``mixture_fused``.  Two routes run the masked torch evaluator on the
 card instead, by config and never on a kernel failure: ``fused=False``
 when asked for, and a source of 2^31 or more, where the JAX package also
 leaves its fused path.
@@ -792,6 +794,17 @@ def _kernel_route(spec: MixtureSpec, device, fused: Optional[bool],
     return fused is not False and spec.fused_applies()
 
 
+def _route_keys(spec: MixtureSpec, seed, epoch, rounds: int, device,
+                triple):
+    """The keys argument of a kernel regen: None where ``mixture_fused``
+    derives them itself (one launch), else the ``mixture_source_keys``
+    buffer (a launch before it)."""
+    if cuda_kernel.mixture_folds(spec, rounds):
+        return None
+    return cuda_kernel.mixture_source_keys(spec, seed, epoch, rounds=rounds,
+                                           device=device, triple=triple)
+
+
 def _check_rank(rank: int, world: int) -> None:
     if int(world) < 1:
         raise ValueError(f"world must be >= 1, got {int(world)}")
@@ -833,15 +846,13 @@ def mixture_epoch_indices_cuda(
         )
     with torch.profiler.record_function("psds_mixture_regen"):
         if _kernel_route(spec, device, fused, shuffle):
-            keys = cuda_kernel.mixture_source_keys(
-                spec, seed, epoch, rounds=rounds, device=device,
-                triple=triple)
             return cuda_kernel.mixture_fused(
-                keys, spec, seed, epoch, rank=rank, world=world,
+                _route_keys(spec, seed, epoch, rounds, device, triple), spec,
+                seed, epoch, rank=rank, world=world,
                 num_samples=num_samples, partition=partition,
                 wide_pos=total + spec.block > core.INT32_MAX,
                 shuffle=shuffle, order_windows=order_windows, rounds=rounds,
-                triple=triple)
+                device=device, triple=triple)
         seed_p, epoch_p = cuda_kernel._plain_keys(seed, epoch, triple)
         return mixture_epoch_indices_generic(
             spec, seed_p, epoch_p, rank, world, epoch_samples=epoch_samples,
@@ -857,12 +868,11 @@ def _stream_at_positions(positions: torch.Tensor, spec: MixtureSpec, seed,
     """Ids of int64 ``positions`` on ``device``: the kernels where they
     apply, else the plain law."""
     if _kernel_route(spec, device, fused, shuffle):
-        keys = cuda_kernel.mixture_source_keys(
-            spec, seed, epoch, rounds=rounds, device=device, triple=triple)
         return cuda_kernel.mixture_fused(
-            keys, spec, seed, epoch, positions=positions, wide_pos=wide,
+            _route_keys(spec, seed, epoch, rounds, device, triple), spec,
+            seed, epoch, positions=positions, wide_pos=wide,
             shuffle=shuffle, order_windows=order_windows, rounds=rounds,
-            triple=triple)
+            device=device, triple=triple)
     seed_p, epoch_p = cuda_kernel._plain_keys(seed, epoch, triple)
     return mixture_stream_at_generic(
         positions, spec, seed_p, epoch_p, shuffle=shuffle,

@@ -76,6 +76,12 @@ def _shard_epoch_keys(sid: torch.Tensor, seed) -> tuple:
     return lo0 ^ sum_lo, hi0 ^ hi
 
 
+def sequential(full: bool, w: int) -> bool:
+    """Whether mode ``(full, w)`` leaves every shard in storage order (a
+    window of at most one sample): then no row record is read."""
+    return not full and w <= 1
+
+
 def row_windows(m: torch.Tensor, full: bool, w: int) -> torch.Tensor:
     """W_row: the shard itself for the full shuffle, else ``min(w, m)``."""
     return m if full else torch.clamp(m, max=w)
@@ -134,18 +140,20 @@ def _rowwise_swap(x, m, key, pair, rounds: int):
     return x
 
 
-def shard_expand_ref(rowtab: torch.Tensor, sids: torch.Tensor,
+def shard_expand_ref(rowtab: Optional[torch.Tensor], sids: torch.Tensor,
                      offsets: torch.Tensor, ends: Optional[torch.Tensor], *,
                      m_uniform: int, lanes: int, full: bool, w: int,
                      rounds: int = core.DEFAULT_ROUNDS,
                      out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """Every output lane of the expansion from the row records, in stream
-    order, on ``rowtab``'s device: the lane's row (``t // m_uniform``, or
-    the first row whose inclusive prefix ``ends`` passes ``t``), its offset
+    order, on ``sids``' device: the lane's row (``t // m_uniform``, or the
+    first row whose inclusive prefix ``ends`` passes ``t``), its offset
     ``u`` in the shard, the §7.2 law at ``u``, plus the shard's offset.
     The pairing constants are recomputed per lane from the pairing keys
-    (``_rowwise_swap``), not read from the records."""
-    dev = rowtab.device
+    (``_rowwise_swap``), not read from the records.  In sequential mode
+    (``sequential(full, w)``) the lane is ``u`` and ``rowtab`` may be
+    None."""
+    dev = sids.device
     t = torch.arange(lanes, dtype=torch.int64, device=dev)
     if ends is None:
         row = t // m_uniform
@@ -156,6 +164,8 @@ def shard_expand_ref(rowtab: torch.Tensor, sids: torch.Tensor,
         start = torch.where(row > 0, ends[(row - 1).clamp(min=0)], 0)
         m = ends[row] - start
     u = t - start
+    if sequential(full, w):
+        return (offsets[sids.long()[row]] + u).to(out_dtype)
     tab = rowtab.view(-1, row_words(rounds)).long() & core._M32
     ek, pair, tk, body = (tab[row, c] for c in range(ROW_HEAD))
     W = row_windows(m, full, w)

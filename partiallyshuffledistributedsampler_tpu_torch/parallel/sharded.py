@@ -17,8 +17,9 @@ ops, its keys derived from the agreed tensor with the law's ``mix32`` on
 0-d tensors.
 
 The mixture (SPEC.md §8) rides the same agreement: the agreed triple feeds
-the mixture kernels (``mixture_source_keys`` XORs each source's seed
-offset into the agreed halves on the card, the bitwise split of
+the mixture kernels (``mixture_fused``, or ``mixture_source_keys`` for a
+spec too large to fold, XORs each source's seed offset into the agreed
+halves on the card, the bitwise split of
 ``source_seed_folded``), and the remainder positions of an elastic
 mixture epoch are built with torch ops on the card before the kernel
 evaluates them.

@@ -170,7 +170,8 @@ def _expand(shard_ids, tables, *, seed, epoch, full: bool, w: int,
             trusted: bool = False) -> torch.Tensor:
     """The expansion on ``tables.device`` in mode ``(full, w)``
     (``shuffle_mode``): the row records, then every lane, by the kernels'
-    wrappers or (``plain``) their plain versions.
+    wrappers or (``plain``) their plain versions.  Sequential mode reads no
+    record, so it computes none.
 
     Shard ids already on the card stay there; ids from the host are
     validated there and uploaded with the inclusive prefix of their sizes
@@ -179,25 +180,32 @@ def _expand(shard_ids, tables, *, seed, epoch, full: bool, w: int,
     range by construction) need none."""
     w = min(w, core.INT32_MAX)  # shards are below 2^31: min(w, m) is kept
     dev = tables.device
-    if plain:
+    seq = shard.sequential(full, w)
+    if seq:
+        ck._plain_keys(seed, epoch, triple)  # the key arguments, checked
+
+        def row_keys(sids, sizes_out):
+            return None, tables.dev_sizes[sids.long()] if sizes_out else None
+    elif plain:
         seed_p, epoch_p = ck._plain_keys(seed, epoch, triple)
 
         def row_keys(sids, sizes_out):
             return shard.shard_row_keys_ref(sids, tables.dev_sizes, seed_p,
                                             epoch_p, full=full, w=w,
                                             rounds=rounds)
-
-        def expand(rowtab, sids, ends, lanes):
-            return shard.shard_expand_ref(
-                rowtab, sids, tables.dev_offsets, ends,
-                m_uniform=tables.m_uniform, lanes=lanes, full=full, w=w,
-                rounds=rounds, out_dtype=tables.out_dtype)
     else:
         def row_keys(sids, sizes_out):
             return ck.shard_row_keys(sids, tables, seed, epoch, full=full,
                                      w=w, rounds=rounds, sizes_out=sizes_out,
                                      triple=triple)
 
+    if plain:
+        def expand(rowtab, sids, ends, lanes):
+            return shard.shard_expand_ref(
+                rowtab, sids, tables.dev_offsets, ends,
+                m_uniform=tables.m_uniform, lanes=lanes, full=full, w=w,
+                rounds=rounds, out_dtype=tables.out_dtype)
+    else:
         def expand(rowtab, sids, ends, lanes):
             return ck.shard_expand(rowtab, sids, tables, ends, lanes=lanes,
                                    full=full, w=w, rounds=rounds)

@@ -135,14 +135,22 @@ def test_goldens_on_gpu():
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
+    above = ck.MAX_ROUNDS + 1
     with pytest.raises(ValueError, match="rounds"):
-        ck.index_general(1000, 64, 0, 0, 0, 2, rounds=65, device="cuda")
+        ck.index_general(1000, 64, 0, 0, 0, 2, rounds=above, device="cuda")
     with pytest.raises(ValueError, match="window"):
         ck.index_general(1000, 2**32 + 5, 0, 0, 0, 2, device="cuda")
     with pytest.raises(ValueError, match="rank"):
         ck.index_amortized(1000, 256, 0, 0, 2, 2)
     with pytest.raises(ValueError, match="rounds"):
-        ck.index_amortized(1000, 256, 0, 0, 0, 2, rounds=65)
+        ck.index_amortized(1000, 256, 0, 0, 0, 2, rounds=above)
+    spec = MixtureSpec(SIZES, WEIGHTS, windows=64, block=100)
+    with pytest.raises(ValueError, match="rounds"):
+        ck.mixture_source_keys(spec, 0, 0, rounds=above)
+    with pytest.raises(ValueError, match="rounds"):
+        mixture_epoch_indices_cuda(spec, 0, 0, 0, 1, rounds=above)
+    with pytest.raises(ValueError, match="rounds"):
+        shard_mode.expand_shard_indices_cuda([0, 1], [5, 7], rounds=above)
 
 
 def test_sampler_and_iterator_on_gpu():
@@ -282,8 +290,11 @@ def test_mixture_kernels_match_numpy_and_plain(sources, weights, skw, lkw,
     ps = MixtureSpec(sources, weights, **skw)
     ck.reset_launches()
     got = mixture_epoch_indices_cuda(ps, 42, 3, rank, world, **lkw)
+    rounds = lkw.get("rounds", core.DEFAULT_ROUNDS)
     assert ck.launches["mixture_fused"] == 1
-    assert ck.launches["mixture_source_keys"] == 1
+    # small specs fold their keys into mixture_fused: one launch a regen
+    assert ck.launches["mixture_source_keys"] == int(
+        not ck.mixture_folds(ps, rounds))
     _t, ns, total = pmix.mixture_epoch_sizes(ps, lkw.get("epoch_samples"),
                                              world, False)
     pos = (np.arange(ns, dtype=np.int64) * world + rank
@@ -294,7 +305,6 @@ def test_mixture_kernels_match_numpy_and_plain(sources, weights, skw, lkw,
                            if k in ("shuffle", "order_windows", "rounds")})
     assert got.is_cuda and got.dtype == ps.out_dtype()
     np.testing.assert_array_equal(got.cpu().numpy(), want)
-    rounds = lkw.get("rounds", core.DEFAULT_ROUNDS)
     keys = ck.mixture_source_keys(ps, 42, 3, rounds=rounds)
     assert torch.equal(keys, ck.mixture_source_keys_ref(ps, 42, 3,
                                                         rounds=rounds,
@@ -404,7 +414,9 @@ def test_shard_kernels_match_host_and_plain(cid, sizes, ids):
                 assert got.is_cuda and got.dtype == torch.int32
                 np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
             assert ck.launches["shard_expand"] == 2
-            assert ck.launches["shard_row_keys"] == 2
+            # sequential mode reads no record, so it computes none
+            assert ck.launches["shard_row_keys"] == (
+                0 if S.sequential(full, w) else 2)
             plain = shard_mode.expand_shard_indices_generic(
                 sids, sizes, seed=4, epoch=epoch, within_shard_shuffle=wss)
             assert torch.equal(got, plain)
@@ -501,3 +513,268 @@ def test_shard_sampler_device_epoch_indices_on_gpu():
     assert s._pending is pending and s.state_dict()["offset"] == 0
     assert list(s) == shard_ids.tolist()
     assert s._pending is None
+
+
+# ------------------------------------------------- rounds above 64 (all)
+#: the round counts SPEC.md §2 cites (~102, ~121) and 65, held against the
+#: numpy reference too; and the limit
+HIGH_ROUNDS = (65, 102, 121)
+ROUND_CASES = [*HIGH_ROUNDS, ck.MAX_ROUNDS]
+
+
+@pytest.mark.parametrize("rounds", ROUND_CASES)
+def test_index_kernels_at_high_rounds(rounds):
+    """Both index kernels in both widths against their plain versions, and
+    at the cited counts against the numpy reference: a tail window, and
+    the schedules in dynamic shared memory past 48 KB at the limit."""
+    for n, window, world, rank in ((100_000, 8192, 8, 3), (1000, 64, 4, 1),
+                                   (N31, 8192, 8192, 8191)):
+        wide = core.is_wide(n)
+        general = ck.index_general_wide if wide else ck.index_general
+        amortized = ck.index_amortized_wide if wide else ck.index_amortized
+        ns, _ = core.shard_sizes(n, world, False)
+        want = ck.index_general_ref(n, window, 5, 2, rank, world,
+                                    rounds=rounds, device="cuda")
+        ck.reset_launches()
+        assert torch.equal(general(n, window, 5, 2, rank, world,
+                                   rounds=rounds), want)
+        assert torch.equal(general(n, window, 5, 2, rank, world,
+                                   partition="blocked", rounds=rounds),
+                           ck.index_general_ref(n, window, 5, 2, rank, world,
+                                                partition="blocked",
+                                                rounds=rounds, device="cuda"))
+        got = amortized(n, window, 5, 2, rank, world, rounds=rounds)
+        assert sum(ck.launches.values()) == 3
+        assert torch.equal(got, want)
+        assert torch.equal(got, ck.epoch_indices_amortized_ref(
+            n, window, 5, 2, rank, world, ns, rounds=rounds, device="cuda"))
+        if rounds in HIGH_ROUNDS and ns <= 100_000:
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), jcpu.epoch_indices_np(
+                    n, window, 5, 2, rank, world, rounds=rounds))
+
+
+@pytest.mark.parametrize("rounds", ROUND_CASES)
+def test_mixture_kernels_at_high_rounds(rounds):
+    """The source keys and the fused kernel, keys folded where the spec
+    folds and given by mixture_source_keys everywhere, against their plain
+    versions and the numpy reference."""
+    for pv in (1, 2):
+        skw = dict(windows=64, block=100, pattern_version=pv)
+        js, ps = (jmix.MixtureSpec(SIZES, WEIGHTS, **skw),
+                  MixtureSpec(SIZES, WEIGHTS, **skw))
+        keys = ck.mixture_source_keys(ps, 42, 3, rounds=rounds)
+        assert torch.equal(keys, ck.mixture_source_keys_ref(
+            ps, 42, 3, rounds=rounds, device="cuda"))
+        _t, ns, total = pmix.mixture_epoch_sizes(ps, None, 3, False)
+        kw = dict(rank=1, world=3, num_samples=ns, wide_pos=False,
+                  rounds=rounds)
+        want = ck.mixture_fused_ref(keys, ps, 42, 3, **kw)
+        assert torch.equal(ck.mixture_fused(keys, ps, 42, 3, **kw), want)
+        if ck.mixture_folds(ps, rounds):
+            assert torch.equal(ck.mixture_fused(None, ps, 42, 3, **kw), want)
+        got = mixture_epoch_indices_cuda(ps, 42, 3, 1, 3, rounds=rounds)
+        assert torch.equal(got, want)
+        if rounds in HIGH_ROUNDS:
+            np.testing.assert_array_equal(
+                got.cpu().numpy(),
+                jmix.mixture_epoch_indices_np(js, 42, 3, 1, 3, rounds=rounds))
+
+
+@pytest.mark.parametrize("rounds", ROUND_CASES)
+def test_shard_kernels_at_high_rounds(rounds):
+    """shard_row_keys word for word (65 and 121 take the scalar tail of its
+    runs of four) and shard_expand against their plain versions and the
+    numpy reference, with a zero-size shard; past 1,536 rounds no row's
+    constants fit the tile's stage and every lane reads the records."""
+    rng = np.random.default_rng(rounds)
+    sizes = rng.integers(0, 300, 400)
+    sizes[::9] = 0
+    ids = rng.permutation(400)[:300]
+    tabs = S.shard_tables(sizes, "cuda")
+    sids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    for wss in (True, 17, False):
+        full, w = S.shuffle_mode(wss)
+        rows, _m = ck.shard_row_keys(sids, tabs, 4, 1, full=full, w=w,
+                                     rounds=rounds)
+        assert torch.equal(rows, ck.shard_row_keys_ref(
+            sids, tabs.dev_sizes, 4, 1, full=full, w=w, rounds=rounds)[0])
+        got = shard_mode.expand_shard_indices_cuda(
+            sids, sizes, seed=4, epoch=1, within_shard_shuffle=wss,
+            rounds=rounds)
+        assert torch.equal(got, shard_mode.expand_shard_indices_generic(
+            sids, sizes, seed=4, epoch=1, within_shard_shuffle=wss,
+            rounds=rounds))
+        if rounds in HIGH_ROUNDS:
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), shard_mode.expand_shard_indices_cpu(
+                    ids, sizes, seed=4, epoch=1, within_shard_shuffle=wss,
+                    rounds=rounds).numpy())
+
+
+#: the JAX sampler's checkpoint at rounds=102 (the CPU test
+#: test_torch_port_rounds.py::test_jax_checkpoint_at_rounds_102_loads_into_the_port
+#: holds the JAX sampler to writing exactly this dict)
+JAX_CKPT_R102 = {
+    "spec_version": 2, "kind": "single", "seed": 11, "epoch": 2,
+    "offset": 1000, "n": 100000, "num_replicas": 8, "window": 8192,
+    "rounds": 102, "order_windows": True, "partition": "strided",
+    "shuffle": True, "drop_last": False,
+}
+
+
+def test_jax_checkpoint_at_rounds_102_regenerates_on_the_card():
+    want = jcpu.epoch_indices_np(100_000, 8192, 11, 2, 3, 8, rounds=102)
+    ts = PartiallyShuffleDistributedSampler(100_000, 8, 3, window=8192,
+                                            seed=11, rounds=102)
+    ts.load_state_dict(JAX_CKPT_R102)
+    ck.reset_launches()
+    assert list(ts) == want[1000:].tolist()
+    ts.set_epoch(3)
+    assert list(ts) == jcpu.epoch_indices_np(100_000, 8192, 11, 3, 3, 8,
+                                             rounds=102).tolist()
+    assert ck.launches["index_amortized"] > 0
+    for world, rank in ((8, 3), (5, 4)):
+        got = PartiallyShuffleDistributedSampler.reshard_from_state_dict(
+            JAX_CKPT_R102, world, rank)
+        ref = PartiallyShuffleDistributedSampler.reshard_from_state_dict(
+            JAX_CKPT_R102, world, rank, backend="cpu")
+        assert got.rounds == 102 and list(got) == list(ref)
+        got.set_epoch(3)
+        assert list(got) == jcpu.epoch_indices_np(
+            100_000, 8192, 11, 3, rank, world, rounds=102).tolist()
+
+
+# --------------------------------------------- shard_expand tile edges
+def _tile_case(name):
+    """(sizes, ids) of one tile-edge case of the redesigned shard_expand
+    (tiles of up to 4,096 lanes, 64 staged rows)."""
+    rng = np.random.default_rng(len(name))
+    if name == "rows-cut-by-tiles":  # uniform 1000: rows straddle tiles
+        return np.full(20_000, 1000), rng.permutation(20_000)
+    if name == "tile-inside-one-row":  # S3's 50,000..100,000 rows
+        sizes = np.concatenate([rng.integers(50_000, 100_001, 40),
+                                rng.integers(4, 65, 400)])
+        return sizes, rng.permutation(sizes.size)
+    if name == "more-rows-than-staged":  # zero and tiny rows
+        sizes = rng.integers(0, 4, 3_000_000)
+        return sizes, rng.permutation(sizes.size)
+    if name == "zero-size-rows":
+        sizes = rng.integers(0, 2000, 6000)
+        sizes[rng.random(6000) < 0.3] = 0
+        return sizes, rng.permutation(sizes.size)
+    if name == "partial-last-tile":  # 12,345 x 997 lanes, uniform
+        return np.full(12_345, 997), rng.permutation(12_345)
+    if name == "one-lane-rows":
+        return np.ones(100_000, dtype=np.int64), rng.permutation(100_000)
+    raise KeyError(name)
+
+
+TILE_CASES = ["rows-cut-by-tiles", "tile-inside-one-row",
+              "more-rows-than-staged", "zero-size-rows",
+              "partial-last-tile", "one-lane-rows"]
+
+
+@pytest.mark.parametrize("name", TILE_CASES)
+def test_shard_expand_at_tile_edges(name):
+    sizes, ids = _tile_case(name)
+    sids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    for wss in (True, 64, 5, False):
+        ck.reset_launches()
+        got = shard_mode.expand_shard_indices_cuda(
+            sids, sizes, seed=3, epoch=2, within_shard_shuffle=wss)
+        seq = S.sequential(*S.shuffle_mode(wss))
+        assert ck.launches["shard_expand"] == 1
+        assert ck.launches["shard_row_keys"] == int(not seq)
+        want = shard_mode.expand_shard_indices_generic(
+            sids, sizes, seed=3, epoch=2, within_shard_shuffle=wss)
+        assert got.dtype == want.dtype and torch.equal(got, want), wss
+        # from the host too (the prefix uploaded, not read back)
+        assert torch.equal(shard_mode.expand_shard_indices_cuda(
+            ids, sizes, seed=3, epoch=2, within_shard_shuffle=wss), want)
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_shard_sequential_copy_at_unaligned_row_starts(big):
+    """Sequential mode writes 16 bytes a thread where four (int32) or two
+    (int64) lanes lie in one row; odd sizes put row starts at every
+    alignment."""
+    rng = np.random.default_rng(7)
+    sizes = rng.integers(0, 12, 50_000) * 2 + 1
+    sizes[::13] = 0
+    if big:  # an int64 space: shards 0 and 1 push every offset past 2^31
+        sizes = np.concatenate([[2**30, 2**30 + 7], sizes])
+    ids = rng.permutation(sizes.size)
+    ids = ids[ids > 1] if big else ids
+    for wss in (False, 0, 1):
+        got = shard_mode.expand_shard_indices_cuda(ids, sizes, seed=1,
+                                                   within_shard_shuffle=wss)
+        want = shard_mode.expand_shard_indices_cpu(ids, sizes, seed=1,
+                                                   within_shard_shuffle=wss)
+        assert got.dtype == (torch.int64 if big else torch.int32)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_shard_expand_past_2_31_lanes():
+    """A selection of 2^31 + 65,536 lanes: the kernel's 64-bit lane counter
+    and its 64-bit magic number, held on rows around lane 2^31 (17 GB of
+    int64)."""
+    m, rows = 65_536, 32_769
+    sizes = np.full(rows, m)
+    sids = torch.arange(rows, dtype=torch.int32, device="cuda").flip(0)
+    out = shard_mode.expand_shard_indices_cuda(sids, sizes, seed=2, epoch=1)
+    assert out.numel() == rows * m and out.dtype == torch.int64
+    pick = torch.tensor([0, 1, 32_766, 32_767, 32_768], device="cuda")
+    assert torch.equal(out.view(rows, m)[pick].reshape(-1),
+                       shard_mode.expand_shard_indices_generic(
+                           sids[pick], sizes, seed=2, epoch=1))
+    del out
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------ the fold (mixture)
+#: (sources, rounds): specs that fold (3 and 7 sources at 24 rounds, 3 at
+#: 40) and specs that do not (8 and 25 sources at 24 rounds, 3 at 121:
+#: their keys are still staged, so the kernel can derive them; 300
+#: sources, whose keys are not)
+FOLD_CASES = [((1000, 500, 2500), 24), ((500,) * 7, 24),
+              ((1000, 500, 2500), 40), ((500,) * 8, 24), ((500,) * 25, 24),
+              ((1000, 500, 2500), 121), ((500,) * 300, 24)]
+
+
+@pytest.mark.parametrize("sources,rounds", FOLD_CASES)
+def test_mixture_fold_on_both_sides_of_the_threshold(sources, rounds):
+    seed, epoch = (1 << 40) + 0xFFFFFFF7, 0xFFFFFFF0
+    t = _triple(seed, epoch)
+    spec = MixtureSpec(list(sources), [1 + i % 5 for i in range(len(sources))],
+                       windows=64, block=4096)
+    folds = ck.mixture_folds(spec, rounds)
+    staged = (ck.mixture_key_words(spec, rounds) + 8 * len(sources)
+              <= ck.STAGE_WORDS_CAP)
+    keys = ck.mixture_source_keys_ref(spec, seed, epoch, rounds=rounds,
+                                      device="cuda")
+    _t, ns, total = pmix.mixture_epoch_sizes(spec, None, 3, False)
+    kw = dict(rank=2, world=3, num_samples=ns, wide_pos=False, rounds=rounds)
+    want = ck.mixture_fused_ref(keys, spec, seed, epoch, **kw)
+    if staged:  # the kernel derives the keys it stages
+        assert torch.equal(ck.mixture_fused(None, spec, seed, epoch, **kw),
+                           want)
+        assert torch.equal(ck.mixture_fused(None, spec, None, None,
+                                            triple=t, **kw), want)
+    else:
+        with pytest.raises(ValueError, match="staged words"):
+            ck.mixture_fused(None, spec, seed, epoch, **kw)
+    for s, e, tr in ((seed, epoch, None), (None, None, t)):
+        ck.reset_launches()
+        got = mixture_epoch_indices_cuda(spec, s, e, 2, 3, rounds=rounds,
+                                         triple=tr)
+        assert ck.launches["mixture_fused"] == 1
+        assert ck.launches["mixture_source_keys"] == int(not folds)
+        assert torch.equal(got, want)
+        pos = torch.arange(0, 50_000, 7, device="cuda")
+        ck.reset_launches()
+        got = mixture_stream_at_cuda(pos, spec, seed, epoch, rounds=rounds)
+        assert sum(ck.launches.values()) == 2 - int(folds)
+        assert torch.equal(got, ck.mixture_fused_ref(
+            keys, spec, seed, epoch, positions=pos, wide_pos=False,
+            rounds=rounds))
