@@ -63,12 +63,22 @@ plain version and its bound.  Every failure exits non-zero.
   slice-3 main path too), and phase 6 times the two routes over growing
   source counts; the elastic remainder regen is timed beside the kernel
   regen at 1B and 10B, world 256.
+* Slice 7: the elastic remainder and random access run one kernel,
+  ``index_positions`` (``_wide`` for n >= 2^31), which composes the
+  reshard chain per lane or reads given int64 positions (phase 3f: 1B and
+  10B at world 256 after a reshard 128 -> 256, a blocked 3-layer cascade
+  at 1e8, 64- and 200-layer chains, rounds 65/102/121/4,096, 1M random
+  positions with negative ones, each held against the plain chain law);
+  the slice-1 main path adds a sampler reshard 8 -> 16 through a
+  ``DataLoader`` and the iterator's ``elastic_epoch`` at 1B; the slice-2
+  main path's remainders launch ``index_positions_wide``; phase 6 times
+  both against the plain law and the kernel regen.
 
 ``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
-the ``shard_row_keys`` and ``shard_expand`` times, the launches per regen
-and a digest of each output, through entry points that earlier trees
-share: run it as a copy inside an older checkout to time that tree's route
-on the same card.
+the ``shard_row_keys`` and ``shard_expand`` times, the elastic remainder
+regens, the launches per regen and a digest of each output, through
+entry points that earlier trees share: run it as a copy inside an older
+checkout to time that tree's route on the same card.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -102,6 +112,21 @@ SLICE4 = ("shard_row_keys", "shard_expand")
 SHARD_CONSUMED = 5000
 INDEX_KERNELS = ("index_general", "index_amortized", "index_general_wide",
                  "index_amortized_wide")
+#: the slice-7 kernels: the law on positions from the reshard chain or a
+#: buffer (the elastic remainder, random access)
+SLICE7 = ("index_positions", "index_positions_wide")
+N_1E8 = 100_000_000
+#: a blocked 3-layer reshard cascade at 1e8: 64 -> 96 -> 32 -> 48 ranks
+CASCADE_1E8 = [(64, 700_000), (96, 200_000), (32, 50_000)]
+#: per lane of index_positions besides the law, counted from
+#: csrc/index_kernels.cu in the same way: the rank position (1) and its mod
+#: by the remaining count (multiply-high, subtract, add, two shifts, and
+#: the multiply-subtract of the remainder: 6); per strided layer the add
+#: and the mod (7); per blocked layer the quotient (5), the gap remainder
+#: and the combine (3) and the mod (6); a buffer lane its load and the mod
+#: n (7).  A 64-bit operation of a wide lane counts as two.
+CHAIN_LANE_OPS, STRIDED_LAYER_OPS, BLOCKED_LAYER_OPS = 7, 7, 14
+BUFFER_LANE_OPS = 7
 #: M1: the 1B three-corpus anchor of bench.py / README (web, code, books)
 M1_SOURCES, M1_WEIGHTS = (700_000_000, 200_000_000, 100_000_000), (70, 20, 10)
 #: M2: M1's spec over config 5's 10B-sample epoch (about 10 passes)
@@ -190,6 +215,24 @@ SHARD_LANE_OPS_V1 = 9
 ROW_BASE_OPS, ROW_KEY_OPS = 57, 11
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+
+
+def deep_layers(n: int, depth: int, seed: int = 9) -> list:
+    """A reshard cascade of ``depth`` layers from a numpy seed: the first
+    at world 8192 leaves 700 samples a rank, then random worlds of 2..8
+    each consume 0..2 samples a rank."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ns = -(-n // 8192)
+    layers, domain = [(8192, ns - 700)], 700 * 8192
+    for _ in range(depth - 1):
+        world = int(rng.integers(2, 9))
+        ns = -(-domain // world)
+        consumed = int(rng.integers(0, min(2, ns - 1) + 1))
+        layers.append((world, consumed))
+        domain = (ns - consumed) * world
+    return layers
 
 
 def shard_cells():
@@ -311,6 +354,7 @@ def regen_report() -> None:
 
     import partiallyshuffledistributedsampler_tpu_torch as pt
     from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        core,
         cuda_kernel as ck,
         shard as SH,
     )
@@ -361,6 +405,14 @@ def regen_report() -> None:
     cases.append(("mixture regen per epoch M1 world=256",
                   lambda: pt.mixture_epoch_indices_cuda(m1, 0, 1, 5, 256),
                   20))
+    for n in (N_C4, N_LLAMA):
+        ns128, _ = core.shard_sizes(n, 128, False)
+        layers = [(128, ns128 // 2)]
+        chain, _rem, ns_el = core.elastic_chain(n, layers, 256)
+        cases.append((
+            f"elastic regen n={n:.0e} W=8192 world=256 after {layers}",
+            lambda n=n, c=chain, k=ns_el: pt.elastic_indices_cuda(
+                n, W, 0, 1, 5, 256, k, c), 10))
     for label, fn, reps in cases:
         before = sum(ck.launches.values())
         out = fn()
@@ -592,7 +644,7 @@ def main() -> None:
         bits = np.array(core.seed_triple(seed, epoch), dtype=np.uint32)
         return torch.from_numpy(bits.view(np.int32)).to(dev)
 
-    def routed(name, fn):
+    def routed(name, fn, dtype=torch.int64):
         """Run ``fn`` and check it launched kernel ``name`` once and no
         other kernel: a regen is one launch."""
         before, total = ck.launches[name], sum(ck.launches.values())
@@ -600,8 +652,8 @@ def main() -> None:
         check(ck.launches[name] == before + 1
               and sum(ck.launches.values()) == total + 1,
               f"{name} was not launched alone, once")
-        check(out.is_cuda and out.dtype == torch.int64,
-              f"{name} output is not CUDA int64")
+        check(out.is_cuda and out.dtype == dtype,
+              f"{name} output is not CUDA {dtype}")
         return out
 
     ns256, _ = core.shard_sizes(N_LLAMA, 256, False)
@@ -654,7 +706,7 @@ def main() -> None:
     check(lanes.size >= 1_000_000, f"only {lanes.size} lanes sampled")
     lanes = torch.from_numpy(lanes).to(dev)
     hold("index_amortized_wide", out[lanes],
-         pt.stream_indices_at_cuda(3 + 8 * lanes, N_LLAMA, W, 0, 1),
+         core.stream_indices_at_generic(3 + 8 * lanes, N_LLAMA, W, 0, 1),
          f"n=1e10 W=8192 world=8 rank=3: {lanes.numel()} of {ns8} lanes "
          "(seeded, first, last, body/tail boundary) against the plain "
          "random-access law")
@@ -668,7 +720,7 @@ def main() -> None:
     lanes = torch.tensor([0, 2**32 - 2, 2**32 - 1, 2**32, 2**32 + 1,
                           2**32 + 2, N_2_32 - 1], device=dev)
     hold("index_general_wide", out[lanes],
-         pt.stream_indices_at_cuda(lanes, N_2_32, W, 0, 1),
+         core.stream_indices_at_generic(lanes, N_2_32, W, 0, 1),
          f"n=2^32+4097 W=8192 world=1: lanes {lanes.tolist()} against the "
          "plain random-access law")
     del out
@@ -676,10 +728,10 @@ def main() -> None:
 
     # random access at 10B on the card, against the plain law on the host
     probes = np.random.default_rng(1).integers(0, 2 * N_LLAMA, 4096)
-    got = pt.stream_indices_at_cuda(probes, N_LLAMA, W, 0, 1)
+    got = routed("index_positions_wide", lambda: pt.stream_indices_at_cuda(
+        probes, N_LLAMA, W, 0, 1))
     want = pt.stream_indices_at_cpu(probes, N_LLAMA, W, 0, 1)
-    ok = (got.is_cuda and got.dtype == torch.int64
-          and torch.equal(got.cpu(), want) and int(got.max()) > 2**31)
+    ok = torch.equal(got.cpu(), want) and int(got.max()) > 2**31
     print(f"stream_indices_at_cuda n=1e10: 4096 probes on the card, int64, "
           f"max {int(got.max())}, equal to the host law: {ok}")
     check(ok, "random access at n=1e10 differs from the plain law")
@@ -967,6 +1019,70 @@ def main() -> None:
         del keys, want
         torch.cuda.empty_cache()
 
+    # ------------- 3f: the positions kernels (elastic remainder, access)
+    def positions_name(n):
+        return "index_positions_wide" if core.is_wide(n) else "index_positions"
+
+    def hold_elastic(n, world, layers, rank, label, partition="strided",
+                     **kw):
+        """One elastic regen through the entry point, held against the
+        plain chain law on the card: one launch, every lane."""
+        chain, _rem, ns = core.elastic_chain(n, layers, world)
+        name = positions_name(n)
+        got = routed(name, lambda: pt.elastic_indices_cuda(
+            n, W, 0, 1, rank, world, ns, chain, partition=partition, **kw),
+            core.out_dtype(n))
+        hold(name, got, ck.index_positions_ref(
+            n, W, 0, 1, rank=rank, world=world, num_samples=ns, chain=chain,
+            partition=partition, device=dev, **kw),
+             f"{label} rank={rank} ({ns} lanes, {len(chain)} layers)")
+
+    for n in (N_C4, N_LLAMA):
+        ns128, _ = core.shard_sizes(n, 128, False)
+        for rank in (0, 255):
+            hold_elastic(n, 256, [(128, ns128 // 2)], rank,
+                         f"n={n:.0e} W=8192 world=256 after a reshard "
+                         "128 -> 256 half-way")
+    # a blocked 3-layer cascade at 1e8, and 64- and 200-layer chains (the
+    # layers past 64 are read through the cache, not staged)
+    for rank in (0, 47):
+        hold_elastic(N_1E8, 48, CASCADE_1E8, rank,
+                     f"n=1e8 W=8192 world=48 blocked after {CASCADE_1E8}",
+                     partition="blocked")
+    for depth, n in ((64, N_1E8), (200, N_1E8), (64, N_LLAMA)):
+        layers = deep_layers(n, depth)
+        for partition in ("strided", "blocked"):
+            hold_elastic(n, 7, layers, 6, f"n={n:.0e} world=7 {partition} "
+                         f"{depth}-layer chain", partition=partition)
+    for rounds in (*HIGH_ROUNDS, ck.MAX_ROUNDS):
+        world = 4096 if rounds == ck.MAX_ROUNDS else 256
+        for n in (N_C4, N_WIDE1):
+            ns_old, _ = core.shard_sizes(n, world // 2, False)
+            hold_elastic(n, world, [(world // 2, ns_old // 2)], world - 1,
+                         f"n={n:.0e} world={world} rounds={rounds}",
+                         rounds=rounds)
+    # random access: 1M int64 positions, a quarter of them negative (taken
+    # as their uint64 or low 32 bits, as the reference casts them)
+    rng = np.random.default_rng(12)
+    probes = torch.from_numpy(np.concatenate([
+        rng.integers(-(2**63), 2**63 - 1, 250_000, dtype=np.int64),
+        rng.integers(-(2**40), 0, 250_000),
+        rng.integers(0, 3 * N_LLAMA, 500_000)])).to(dev)
+    for n in (N_LLAMA, N_C4):
+        name = positions_name(n)
+        got = routed(name, lambda n=n: pt.stream_indices_at_cuda(
+            probes, n, W, 0, 1), core.out_dtype(n))
+        hold(name, got, ck.index_positions_ref(n, W, 0, 1, positions=probes),
+             f"stream_indices_at_cuda n={n:.0e}: {probes.numel()} random "
+             "int64 positions, negative ones included")
+    fault = pt.stream_indices_at_cuda([-1], 2**31 + 1, W, 0, 0,
+                                      shuffle=False).tolist()
+    print(f"stream_indices_at_cuda n=2^31+1 p=-1 unshuffled: {fault} "
+          "(p is 2^64 - 1 as uint64; (2^64 - 1) mod n = 3)")
+    check(fault == [3], "a negative position is not taken as uint64")
+    del got, probes
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------ main path
     ck.reset_launches()
     # 4: the sampler under a real DataLoader, ImageNet-1k config
@@ -1052,12 +1168,54 @@ def main() -> None:
               f"int32 views of 512, next epoch prefetched, equal to the "
               f"law: {ok}")
         check(ok, "DeviceEpochIterator batches differ from the law")
+    # 5b: the ImageNet sampler resharded 8 -> 16 20,000 samples into epoch
+    # 3, every new rank's remainder through a real DataLoader; and the C4
+    # iterator's remainder at world 256 after a reshard 128 -> 256
+    consumed = 20_000
+    seen = []
+    for rank in range(8):
+        s8 = pt.PartiallyShuffleDistributedSampler(ds, num_replicas=8,
+                                                   rank=rank, window=W)
+        s8.set_epoch(3)
+        seen.append(np.fromiter(itertools.islice(iter(s8), consumed),
+                                dtype=np.int64, count=consumed))
+    state8 = s8.state_dict()
+    check(state8["offset"] == consumed, "the old ranks' offset")
+    for rank in range(16):
+        r16 = pt.PartiallyShuffleDistributedSampler.reshard_from_state_dict(
+            state8, 16, rank)
+        seen += [b.numpy() for (b,) in DataLoader(ds, batch_size=256,
+                                                   sampler=r16)]
+    seen = np.concatenate(seen)
+    counts = np.bincount(seen, minlength=N_IMAGENET)
+    ok = (counts.min() >= 1
+          and int((counts - 1).sum()) == seen.size - N_IMAGENET)
+    print(f"sampler reshard 8 -> 16 after {consumed} samples a rank: "
+          f"{seen.size} samples (consumed + 16 remainders through a "
+          f"DataLoader), every index of [0, {N_IMAGENET}) at least once, "
+          f"the repeats exactly the wrap padding: {ok}")
+    check(ok, "the resharded sampler's remainder is not exactly-once")
+    ns128, _ = core.shard_sizes(N_C4, 128, False)
+    el_layers = [(128, ns128 // 2)]
+    it_el = pt.DeviceEpochIterator(N_C4, W, 512, seed=0, rank=5, world=256,
+                                   prefetch_next_epoch=False)
+    el_batches = list(it_el.elastic_epoch(1, el_layers))
     torch.cuda.synchronize()
     launches = dict(ck.launches)
     print(f"kernels (slice-1 main path): {json.dumps(launches)}")
-    for name in SLICE1:
+    for name in (*SLICE1, "index_positions"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
+    chain, _, ns_el = core.elastic_chain(N_C4, el_layers, 256)
+    el = torch.cat(el_batches)
+    check(all(b.is_cuda and b.dtype == torch.int32 for b in el_batches),
+          "elastic batches are not CUDA int32")
+    hold("index_positions", el, ck.index_positions_ref(
+        N_C4, W, 0, 1, rank=5, world=256, num_samples=ns_el, chain=chain,
+        device=dev)[:el.numel()],
+         f"DeviceEpochIterator.elastic_epoch n=1e9 world=256 after "
+         f"{el_layers}: {len(el_batches)} batches")
+    del it_el, el_batches, el
 
     # ------------------------------------------- slice-2 main path
     dist.init_process_group("nccl",
@@ -1125,7 +1283,7 @@ def main() -> None:
     torch.cuda.synchronize()
     launches2 = dict(ck.launches)
     print(f"kernels (slice-2 main path): {json.dumps(launches2)}")
-    for name in SLICE2:
+    for name in (*SLICE2, "index_positions_wide"):
         check(launches2[name] > 0,
               f"kernel {name} was not launched on the slice-2 main path")
 
@@ -1152,11 +1310,9 @@ def main() -> None:
           f"{ok}")
     check(ok, "blocked DeviceEpochIterator batches at n=1e10 differ")
     want = pt.elastic_indices_cpu(N_LLAMA, W, 0, 2, 5, 256, layers)
-    ok = elastic.is_cuda and torch.equal(elastic.cpu(),
-                                         want[:elastic.numel()])
-    print(f"DeviceEpochIterator.elastic_epoch n=1e10 after {layers}: "
-          f"{elastic.numel()} lanes, equal to the host law: {ok}")
-    check(ok, "elastic_epoch at n=1e10 differs")
+    hold("index_positions_wide", elastic, want[:elastic.numel()].to(dev),
+         f"DeviceEpochIterator.elastic_epoch n=1e10 after {layers}, "
+         "against the host law")
     ok = all(torch.equal(r, pt.epoch_indices_cuda(N_IMAGENET, W, 0, e, 0, 1))
              for e, r in enumerate(reseeds, start=1))
     print(f"sharded_epoch_indices ImageNet W=8192, NCCL group of one: 32 "
@@ -1177,12 +1333,11 @@ def main() -> None:
     check(ok, "sharded_epoch_indices at n=2^31+5000 differs")
     del sh_wide
     want = pt.elastic_indices_cpu(N_LLAMA, W, 0, 1, 0, 1, sh_layers)
-    ok = (sh_elastic.is_cuda and sh_elastic.dtype == torch.int64
-          and torch.equal(sh_elastic.cpu(), want))
-    print(f"sharded_elastic_indices n=1e10 after {sh_layers} under "
-          f"set_sync_debug_mode('error') with no error: "
-          f"{sh_elastic.numel()} lanes, equal to the host law: {ok}")
-    check(ok, "sharded_elastic_indices at n=1e10 differs")
+    check(sh_elastic.is_cuda and sh_elastic.dtype == torch.int64,
+          "sharded_elastic_indices at n=1e10 is not CUDA int64")
+    hold("index_positions_wide", sh_elastic, want.to(dev),
+         f"sharded_elastic_indices n=1e10 after {sh_layers} under "
+         "set_sync_debug_mode('error') with no error, against the host law")
     del s, it, epochs, blocked, elastic, reseeds, want
     torch.cuda.empty_cache()
 
@@ -1477,6 +1632,7 @@ def main() -> None:
         check(res["is_cuda"] and res["row_equal"] and res["elastic_equal"]
               and res["mixture_equal"] and res["mixture_elastic_equal"]
               and res["launches"]["index_amortized"] == 1
+              and res["launches"]["index_positions"] == 1
               and res["launches"]["mixture_fused"] == 2
               and res["launches"]["mixture_source_keys"] == 0,
               f"gloo rank {res['rank']}: rank 0's seed did not win")
@@ -1596,29 +1752,44 @@ def main() -> None:
             line += f", device triple {tri_ms:.4f} ms"
         print(f"{line} | {card}")
     torch.cuda.empty_cache()
-    # the elastic remainder regen (plain torch ops on the card, ROADMAP
-    # Queue B item 1) beside the kernel regen of the same shape: 1B and
-    # 10B, world 256, after one reshard 128 -> 256 half-way through the
-    # epoch; the same timers as the regens
+    # the elastic remainder regen (index_positions) beside the kernel regen
+    # of the same shape: 1B and 10B, world 256, after one reshard 128 ->
+    # 256 half-way through the epoch; the same timers as the regens, and
+    # the plain chain law on the card
+    def positions_lanes(p, n):
+        """Lanes whose position (mod n) is in a full window (two
+        bijections), and the rest (the tail window: one)."""
+        body = int((p % n < (n // W) * W).sum().item())
+        return body, p.numel() - body
+
     for n in (N_C4, N_LLAMA):
+        wide = core.is_wide(n)
+        name = positions_name(n)
         ns128, _ = core.shard_sizes(n, 128, False)
         layers_el = [(128, ns128 // 2)]
-        chain, _rem, ns_el = core.elastic_chain(n, layers_el, 256)
+        chain, rem, ns_el = core.elastic_chain(n, layers_el, 256)
         it_el = pt.DeviceEpochIterator(n, W, 512, seed=0, rank=5, world=256,
                                        prefetch_next_epoch=False)
         regen = gpu_ms(lambda n=n: pt.epoch_indices_cuda(n, W, 0, 1, 5, 256),
                        20)
         regen_lanes, _ = core.shard_sizes(n, 256, False)
-        for label, fn in (
+        kernel_ms = None
+        for label, fn, reps in (
                 ("elastic_indices_cuda", lambda n=n, c=chain, k=ns_el:
-                 pt.elastic_indices_cuda(n, W, 0, 1, 5, 256, k, c)),
+                 pt.elastic_indices_cuda(n, W, 0, 1, 5, 256, k, c), 20),
                 ("DeviceEpochIterator.elastic_epoch_array",
-                 lambda it=it_el, ly=layers_el: it.elastic_epoch_array(1, ly))):
+                 lambda it=it_el, ly=layers_el: it.elastic_epoch_array(1, ly),
+                 20),
+                ("plain chain law (index_positions_ref)",
+                 lambda n=n, c=chain, k=ns_el: ck.index_positions_ref(
+                     n, W, 0, 1, rank=5, world=256, num_samples=k, chain=c,
+                     device=dev), 3)):
             before = sum(ck.launches.values())
             fn()
             n_launch = sum(ck.launches.values()) - before
-            dev_ms = gpu_ms(fn, 5)
-            walls = host_walls(fn, 5)
+            dev_ms = gpu_ms(fn, reps)
+            walls = host_walls(fn, reps)
+            kernel_ms = dev_ms if kernel_ms is None else kernel_ms
             print(f"elastic regen {label} n={n:.0e} W=8192 world=256 after "
                   f"{layers_el} ({ns_el} lanes, {n_launch} kernel launches): "
                   f"device {dev_ms:.4f} ms, host wall to ready median "
@@ -1626,9 +1797,44 @@ def main() -> None:
                   f" kernel regen of the full epoch ({regen_lanes} lanes) "
                   f"{regen:.4f} ms, per lane {dev_ms / ns_el:.3e} against "
                   f"{regen / regen_lanes:.3e} ms, "
-                  f"{(dev_ms / ns_el) / (regen / regen_lanes):.1f}x | {card}")
-        del it_el
+                  f"{(dev_ms / ns_el) / (regen / regen_lanes):.2f}x | {card}")
+        plain = dev_ms
+        q = core.rank_positions(rem, 5, 256, ns_el, "strided", wide, dev)
+        body, tail = positions_lanes(
+            core.compose_remainder_chain(q, chain, "strided", wide), n)
+        chain_ops = (CHAIN_LANE_OPS + STRIDED_LAYER_OPS) * (2 if wide else 1)
+        ops = (body * (2 * son + INNER_KEY_OPS + 2) + tail * (son + 2)
+               + ns_el * (chain_ops + (WIDE_OPS if wide else 0)))
+        nbytes = ns_el * core.out_dtype(n).itemsize + ck.LAYER_WORDS * 8
+        b_ms, b_by = bound(ops, nbytes)
+        print(f"time {name} n={n:.0e} W=8192 world=256 remainder: kernel "
+              f"{kernel_ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {ops / 1e9:.3f} G int32 ops over {body} body + "
+              f"{tail} tail lanes, {nbytes / 1e6:.1f} MB), "
+              f"{b_ms / kernel_ms:.1%} of bound | {card}")
+        rows[name] = (kernel_ms, plain, b_ms, b_by)
+        del it_el, q
         torch.cuda.empty_cache()
+    # random access: 1M int64 positions at 10B, a quarter negative
+    rng = np.random.default_rng(12)
+    probes = torch.from_numpy(np.concatenate([
+        rng.integers(-(2**63), 2**63 - 1, 250_000, dtype=np.int64),
+        rng.integers(0, 3 * N_LLAMA, 750_000)])).to(dev)
+    ms = gpu_ms(lambda: pt.stream_indices_at_cuda(probes, N_LLAMA, W, 0, 1),
+                50)
+    plain = gpu_ms(lambda: ck.index_positions_ref(N_LLAMA, W, 0, 1,
+                                                  positions=probes), 3)
+    body, tail = positions_lanes(
+        core.u64_divmod(probes, N_LLAMA)[1], N_LLAMA)
+    ops = (body * (2 * son + INNER_KEY_OPS + 2) + tail * (son + 2)
+           + probes.numel() * (2 * BUFFER_LANE_OPS + WIDE_OPS))
+    b_ms, b_by = bound(ops, probes.numel() * 16)
+    print(f"time index_positions_wide stream_indices_at_cuda n=1e10, "
+          f"{probes.numel()} random int64 positions: kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"{b_ms / ms:.1%} of bound | {card}")
+    del probes
+    torch.cuda.empty_cache()
     # the three hot kernels at 121 rounds (SPEC.md §2), beside 24
     ns_m1, _ = mix_sizes(m1, None, 256)
     sids121 = pt.epoch_indices_cuda(SHARDS, SHARD_W, 0, 1, 5, 8)
@@ -1906,6 +2112,12 @@ def main() -> None:
             "partiallyshuffledistributedsampler_tpu/sampler/shard_mode.py:121",
         "shard_expand":
             "partiallyshuffledistributedsampler_tpu/sampler/shard_mode.py:437",
+        "index_positions":
+            "partiallyshuffledistributedsampler_tpu/ops/xla.py:270"
+            " + partiallyshuffledistributedsampler_tpu/ops/xla.py:347",
+        "index_positions_wide":
+            "partiallyshuffledistributedsampler_tpu/ops/xla.py:270"
+            " + partiallyshuffledistributedsampler_tpu/ops/xla.py:347",
     }
     kernels = []
     for name in replaces:

@@ -1,6 +1,6 @@
 // Hand-written CUDA kernels for the epoch-index law (SPEC.md) on Hopper.
 //
-// Four kernels over the law's __device__ functions in law.cuh:
+// Six kernels over the law's __device__ functions in law.cuh:
 //
 //   index_general         -> replaces the Pallas kernel
 //                            partiallyshuffledistributedsampler_tpu/ops/
@@ -25,6 +25,15 @@
 //                            2^31): ops/core.py epoch_indices_generic with
 //                            uint64 positions, and ops/xla.py
 //                            _epoch_indices_amortized (its `big` branch).
+//   index_positions       -> the general law on positions from another
+//   index_positions_wide     source than rank + world*t, replacing the XLA
+//                            programs ops/xla.py _compiled_elastic_indices /
+//                            elastic_indices_jax (the elastic remainder,
+//                            SPEC.md §6) and stream_indices_at_jax (random
+//                            access, SPEC.md §4).  The chain source composes
+//                            the reshard chain per lane in registers; the
+//                            buffer source reads int64 positions.  See
+//                            index_positions_kernel.
 //
 // The narrow and the wide forms are one kernel body templated on the
 // position type Pos (uint32 / uint64) and the output type Out (int32 /
@@ -271,6 +280,129 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ------------------------------------------------------------ positions
+// The remainder law (SPEC.md §6): lane t of the new world's rank takes the
+// ordinal q = rank_position(t) mod R over the innermost remainder, maps it
+// out through the reshard layers, innermost first, each followed by a mod
+// (the next layer's remaining count, and n after the outermost), and then
+// runs the windowed permutation: ops/core.py rank_positions,
+// compose_remainder_chain and stream_indices_at_generic, one lane a thread,
+// with no position written to or read from device memory.  A layer maps
+//   strided: q -> q + consumed*world
+//   blocked: q -> (q / gap)*ns + consumed + q % gap,  gap = ns - consumed
+// in Pos arithmetic: uint32 positions wrap at 2^32 as the reference's
+// uint32 ones do (the host refuses narrow constants of 2^32 or more, as the
+// reference's uint32 casts do), uint64 ones do not wrap.  Every / and % is a
+// multiply-high by the divisor's magic number (law.cuh magic_div), in 32
+// or 64 bits by Pos; the host computes the divisors and their magic numbers
+// once per chain (ops/cuda_kernel.py chain_table).
+//
+// Where the chain lives: a table of LAYER_WORDS uint64 words a layer in
+// device memory, built once per chain and cached by the caller, so a regen
+// copies nothing to the card.  A chain has no depth limit: a block stages
+// its first STAGE_LAYERS layers (4 KB) in shared memory beside the
+// schedules, and a deeper layer is read through the read-only cache, the
+// same address for every lane of a warp.  One layer costs a lane 7
+// (strided) to 14 (blocked) operations against the ~650 of its two
+// bijections, so the chain hardly moves the bound; launch arguments would
+// have capped the depth.
+//
+// The buffer source (random access) reads one int64 position a lane: its
+// low 32 bits (uint32 positions) or all 64 as uint64, as the reference
+// casts them, then mod n.  Lanes are counted in uint64 in both sources.
+constexpr int LAYER_WORDS = 8;
+enum LayerWord : int {
+  L_ADD,         // consumed*world (strided) or consumed (blocked)
+  L_NS,          // the layer's num_samples (blocked)
+  L_GAP,         // ns - consumed (blocked)
+  L_GAP_MULT,    // its magic multiplier
+  L_GAP_SHIFT,   // s1 | s2 << 8
+  L_MOD,         // the modulus after the layer
+  L_MOD_MULT,
+  L_MOD_SHIFT,
+};
+constexpr uint32_t STAGE_LAYERS = 64;
+
+// The lanes' position source.
+struct PosSource {
+  const int64_t *positions;   // buffer source (null for the chain)
+  const uint64_t *layers;     // chain table, innermost layer first
+  uint32_t depth;             // layers in the chain
+  uint64_t first, first_mult, first_shift;  // the modulus of the first
+                                            // position: R or n
+};
+
+// x / d for a divisor given by its magic multiplier and packed shifts.
+template <typename Pos>
+__device__ __forceinline__ Pos quotient(Pos x, uint64_t mult,
+                                        uint64_t shift) {
+  const uint32_t s1 = (uint32_t)shift & 0xFFu, s2 = (uint32_t)(shift >> 8);
+  if constexpr (sizeof(Pos) == 4) {
+    return magic_div((uint32_t)x, Magic32{(uint32_t)mult, s1, s2});
+  } else {
+    return magic_div((uint64_t)x, Magic64{mult, s1, s2});
+  }
+}
+
+template <typename Pos>
+__device__ __forceinline__ Pos remainder(Pos x, uint64_t d, uint64_t mult,
+                                         uint64_t shift) {
+  return x - quotient<Pos>(x, mult, shift) * (Pos)d;
+}
+
+// kChain: positions from the reshard chain, else from S.positions.
+template <typename Pos, typename Out, bool kDyn, bool kChain>
+__global__ void __launch_bounds__(THREADS)
+    index_positions_kernel(Out *__restrict__ out, LawParams P, PosSource S,
+                           const uint32_t *__restrict__ seeds) {
+  __shared__ __align__(16) uint32_t sched_fixed[kDyn ? 4 : 3 * STATIC_ROUNDS];
+  __shared__ uint64_t staged[kChain ? STAGE_LAYERS * LAYER_WORDS : 1];
+  extern __shared__ uint32_t sched_dyn[];
+  const Keys k = make_keys(P, seeds);
+  const Schedules s = kDyn ? load_schedules(sched_dyn, P.rounds, P, k)
+                           : load_schedules(sched_fixed, STATIC_ROUNDS, P, k);
+  const uint32_t nstaged = S.depth < STAGE_LAYERS ? S.depth : STAGE_LAYERS;
+  if (kChain) {
+    const unsigned long long *src = (const unsigned long long *)S.layers;
+    for (uint32_t i = threadIdx.x; i < nstaged * LAYER_WORDS; i += blockDim.x)
+      staged[i] = __ldg(src + i);
+  }
+  __syncthreads();
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  for (uint64_t t = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       t < P.num_samples; t += stride) {
+    Pos q;
+    if (kChain) {
+      q = P.strided ? (Pos)P.rank + (Pos)P.world * (Pos)t
+                    : (Pos)P.rank * (Pos)P.num_samples + (Pos)t;
+      q = remainder<Pos>(q, S.first, S.first_mult, S.first_shift);
+      for (uint32_t i = 0; i < S.depth; ++i) {
+        const uint64_t *L =
+            i < STAGE_LAYERS ? staged + i * LAYER_WORDS : nullptr;
+        auto word = [&](int f) -> uint64_t {
+          return L != nullptr
+                     ? L[f]
+                     : (uint64_t)__ldg((const unsigned long long *)S.layers +
+                                       (uint64_t)i * LAYER_WORDS + f);
+        };
+        if (P.strided) {
+          q = q + (Pos)word(L_ADD);
+        } else {
+          const Pos qd = quotient<Pos>(q, word(L_GAP_MULT), word(L_GAP_SHIFT));
+          q = qd * (Pos)word(L_NS) + (Pos)word(L_ADD) +
+              (q - qd * (Pos)word(L_GAP));
+        }
+        q = remainder<Pos>(q, word(L_MOD), word(L_MOD_MULT),
+                           word(L_MOD_SHIFT));
+      }
+    } else {
+      q = remainder<Pos>((Pos)(uint64_t)S.positions[t], S.first,
+                         S.first_mult, S.first_shift);
+    }
+    out[t] = (Out)(P.shuffle ? windowed_perm<Pos>(q, P, k, s) : q);
+  }
+}
+
 LawParams make_params(uint64_t n, uint32_t window, uint32_t world,
                       uint64_t num_samples, uint32_t rank, uint32_t seed_lo,
                       uint32_t seed_hi, uint32_t epoch, int shuffle,
@@ -378,6 +510,60 @@ int launch_amortized(bool wide, void *out, uint64_t n, uint32_t window,
   return (int)cudaGetLastError();
 }
 
+template <typename Pos, typename Out, bool kChain>
+void launch_positions_body(Out *out, const LawParams &P, const PosSource &S,
+                           const uint32_t *seeds, cudaStream_t st) {
+  const size_t smem = schedule_bytes(P.rounds);
+  const unsigned grid = grid_for(P.num_samples);
+  if (smem == 0) {
+    index_positions_kernel<Pos, Out, false, kChain>
+        <<<grid, THREADS, 0, st>>>(out, P, S, seeds);
+    return;
+  }
+  // the dynamic schedules beside the static staged layers
+  const size_t fixed = 16 + (kChain ? STAGE_LAYERS * LAYER_WORDS : 1) * 8;
+  if (smem + fixed > SMEM_DEFAULT)
+    cudaFuncSetAttribute(index_positions_kernel<Pos, Out, true, kChain>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  index_positions_kernel<Pos, Out, true, kChain>
+      <<<grid, THREADS, smem, st>>>(out, P, S, seeds);
+}
+
+// `positions` null: the chain source (`layers`, `depth`, rank and world,
+// `lanes` the rank's num_samples, `first` the innermost remaining count);
+// else the buffer source (`first` = n).
+template <typename Pos, typename Out>
+int launch_positions(bool wide, void *out, const void *positions,
+                     uint64_t lanes, uint64_t n, uint32_t window,
+                     uint32_t world, uint32_t rank, const void *layers,
+                     uint32_t depth, uint64_t first, uint64_t first_mult,
+                     uint32_t first_shift, uint32_t seed_lo,
+                     uint32_t seed_hi, uint32_t epoch, const void *seeds,
+                     int shuffle, int order_windows, int strided, int rounds,
+                     void *stream) {
+  const bool chain = positions == nullptr;
+  if (bad_config(n, window, rounds) || bad_width(n, wide) || lanes == 0 ||
+      first == 0 || (!wide && first > 0xFFFFFFFFull) ||
+      (chain && (bad_rank(world, rank, lanes) || depth == 0 ||
+                 layers == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const LawParams P =
+      make_params(n, window, chain ? world : 1, lanes, chain ? rank : 0,
+                  seed_lo, seed_hi, epoch, shuffle, order_windows, strided,
+                  rounds);
+  const PosSource S{(const int64_t *)positions, (const uint64_t *)layers,
+                    chain ? depth : 0, first, first_mult, first_shift};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (chain)
+    launch_positions_body<Pos, Out, true>((Out *)out, P, S,
+                                          (const uint32_t *)seeds, st);
+  else
+    launch_positions_body<Pos, Out, false>((Out *)out, P, S,
+                                           (const uint32_t *)seeds, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int psds_index_general(void *out, uint64_t n, uint32_t window,
@@ -426,4 +612,30 @@ extern "C" int psds_index_amortized_wide(void *out, uint64_t n,
   return launch_amortized<uint64_t, int64_t>(
       true, out, n, window, world, num_samples, rank, seed_lo, seed_hi,
       epoch, seeds, order_windows, rounds, stream);
+}
+
+extern "C" int psds_index_positions(
+    void *out, const void *positions, uint64_t lanes, uint64_t n,
+    uint32_t window, uint32_t world, uint32_t rank, const void *layers,
+    uint32_t depth, uint64_t first, uint64_t first_mult,
+    uint32_t first_shift, uint32_t seed_lo, uint32_t seed_hi, uint32_t epoch,
+    const void *seeds, int shuffle, int order_windows, int strided,
+    int rounds, void *stream) {
+  return launch_positions<uint32_t, int32_t>(
+      false, out, positions, lanes, n, window, world, rank, layers, depth,
+      first, first_mult, first_shift, seed_lo, seed_hi, epoch, seeds,
+      shuffle, order_windows, strided, rounds, stream);
+}
+
+extern "C" int psds_index_positions_wide(
+    void *out, const void *positions, uint64_t lanes, uint64_t n,
+    uint32_t window, uint32_t world, uint32_t rank, const void *layers,
+    uint32_t depth, uint64_t first, uint64_t first_mult,
+    uint32_t first_shift, uint32_t seed_lo, uint32_t seed_hi, uint32_t epoch,
+    const void *seeds, int shuffle, int order_windows, int strided,
+    int rounds, void *stream) {
+  return launch_positions<uint64_t, int64_t>(
+      true, out, positions, lanes, n, window, world, rank, layers, depth,
+      first, first_mult, first_shift, seed_lo, seed_hi, epoch, seeds,
+      shuffle, order_windows, strided, rounds, stream);
 }

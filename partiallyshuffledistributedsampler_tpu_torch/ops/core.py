@@ -21,8 +21,11 @@ tensors, so every lane here is an ``int64`` tensor holding a value in
   exact (``tests/test_torch_port_core.py`` pins this down);
 * ``>>`` of a non-negative value is the logical shift.
 
-uint64 positions (n >= 2^31) are carried as plain int64: every position is
-below n, far below 2^63 for any index space the sampler takes.
+uint64 positions (n >= 2^31) are carried as plain int64: every position
+the law computes is below n, far below 2^63 for any index space the
+sampler takes.  A position given from outside (random access) may be any
+int64; a negative one stands for its uint64 bits, x + 2^64, and
+``u64_divmod`` divides it as such.
 
 Scalars (keys, round constants) may be Python ints or 0-d tensors: every
 function here works on both, so a key that depends only on (seed, epoch)
@@ -307,6 +310,28 @@ def wrap_pos(x, wide: bool):
     return x if wide else x & _M32
 
 
+_M63 = (1 << 63) - 1
+
+
+def u64_divmod(x: torch.Tensor, d):
+    """``(x // d, x % d)`` of the uint64 values whose int64 bits are ``x``
+    (a negative ``x`` stands for ``x + 2^64``), for divisors ``1 <= d <=
+    2^62`` (an int or an int64 tensor broadcastable against ``x``).  The
+    quotient comes as int64 bits, modulo 2^64.
+
+    ``x & (2^63 - 1)`` is ``x`` or ``x + 2^63``; with ``2^63 = c*d + e``,
+    ``e`` in ``[1, d]``, the high half adds ``c`` to the quotient and ``e``
+    to the remainder, whose sum stays below ``2d <= 2^63``."""
+    a = x & _M63
+    q, r = a // d, a % d
+    c, e = _M63 // d, _M63 % d + 1
+    r2 = r + e
+    carry = r2 >= d
+    neg = x < 0
+    return (torch.where(neg, q + c + carry.to(torch.int64), q),
+            torch.where(neg, torch.where(carry, r2 - d, r2), r))
+
+
 def rank_positions(n: int, rank, world: int, num_samples: int,
                    partition: str, wide: bool, device=None) -> torch.Tensor:
     """Global stream positions owned by ``rank``, wrapped mod n (int64).
@@ -433,10 +458,11 @@ def stream_indices_at_generic(
     rounds: int = DEFAULT_ROUNDS,
 ) -> torch.Tensor:
     """Random access into the epoch stream: ``stream(p) = pi(p mod n)``
-    (SPEC.md §4), on the device of ``positions``.  Positions must be
-    non-negative when n >= 2^31 (they are uint64 there)."""
-    wide = is_wide(n)
-    p = wrap_pos(torch.as_tensor(positions).to(torch.int64), wide) % n
+    (SPEC.md §4), on the device of ``positions``: int64 positions taken
+    as uint32 (n < 2^31) or uint64, as the reference casts them, then mod
+    n."""
+    p = torch.as_tensor(positions).to(torch.int64)
+    p = u64_divmod(p, n)[1] if is_wide(n) else (p & _M32) % n
     if shuffle:
         ek = derive_epoch_key(seed, epoch)
         p = windowed_perm(p, n, window, ek, order_windows=order_windows,

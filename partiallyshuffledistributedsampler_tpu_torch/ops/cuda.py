@@ -16,10 +16,13 @@ come out as int64 (``core.out_dtype``).  The seed may come as scalars or
 as a seed triple tensor on the card (``triple``, the output of the seed
 agreement in ``parallel/``).
 
+``stream_indices_at_cuda`` (random access) and ``elastic_indices_cuda``
+(the remainder epoch after a reshard) launch ``index_positions`` (or its
+``_wide`` form): the law on given positions, or on the rank's remainder
+positions composed through the reshard chain inside the kernel.
+
 On a CPU device the same routing runs the kernels' plain versions, which
-is what the CPU tests use.  ``stream_indices_at_cuda`` and
-``elastic_indices_cuda`` are plain torch ops on ``device``: they are
-random-access reads, not the per-epoch hot path.
+is what the CPU tests use.
 
 ``build_evaluator`` is the plain torch evaluator of a static config, on
 any device, with the same amortized/general routing.
@@ -170,17 +173,21 @@ def stream_indices_at_cuda(
     device="cuda",
 ) -> torch.Tensor:
     """Random access into the epoch stream (SPEC.md §4) on ``device``
-    (default: the current CUDA device; ``positions`` are moved there):
-    ``stream(p) = pi(p mod n)``, int32, or int64 when n >= 2^31."""
+    (default: the current CUDA device; ``positions`` are moved there, as
+    int64): ``stream(p) = pi(p mod n)``, the positions taken as uint32
+    (n < 2^31) or uint64 bits as the reference casts them; int32, or
+    int64 when n >= 2^31.  One ``index_positions(_wide)`` launch."""
     n, window = int(n), int(window)
     cuda_kernel.device_kind(device)
     core.check_index_space(n, window)
-    positions = torch.as_tensor(positions).to(device)
+    positions = torch.as_tensor(positions).to(device=device,
+                                              dtype=torch.int64)
+    kernel = (cuda_kernel.index_positions_wide if core.is_wide(n)
+              else cuda_kernel.index_positions)
     with torch.profiler.record_function("psds_stream_at"):
-        return core.stream_indices_at_generic(
-            positions, n, window, seed, epoch, shuffle=shuffle,
-            order_windows=order_windows, rounds=rounds,
-        )
+        return kernel(n, window, seed, epoch, positions=positions,
+                      shuffle=shuffle, order_windows=order_windows,
+                      rounds=rounds)
 
 
 def elastic_indices_cuda(
@@ -198,15 +205,20 @@ def elastic_indices_cuda(
     partition: str = "strided",
     rounds: int = core.DEFAULT_ROUNDS,
     device="cuda",
+    triple=None,
 ) -> torch.Tensor:
-    """Rank's elastic-remainder-epoch indices (SPEC.md §6) on ``device``.
-    ``chain`` is the outermost-first tuple of (world, num_samples,
-    consumed) reshard layers from ``core.elastic_chain``."""
+    """Rank's elastic-remainder-epoch indices (SPEC.md §6) on ``device``:
+    one ``index_positions(_wide)`` launch, which composes the chain per
+    lane.  ``chain`` is the outermost-first tuple of (world, num_samples,
+    consumed) reshard layers from ``core.elastic_chain``.  ``triple``
+    (with ``seed`` and ``epoch`` None) is the seed triple as an int32[3]
+    tensor on ``device``, read by the kernel from device memory."""
     cuda_kernel.device_kind(device)
+    kernel = (cuda_kernel.index_positions_wide if core.is_wide(int(n))
+              else cuda_kernel.index_positions)
     with torch.profiler.record_function("psds_elastic_regen"):
-        return core.elastic_indices_generic(
-            int(n), int(window), seed, epoch, int(rank), int(world),
-            int(num_samples), chain, shuffle=shuffle,
-            order_windows=order_windows, partition=partition, rounds=rounds,
-            device=device,
-        )
+        return kernel(n, window, seed, epoch, rank=rank, world=world,
+                      num_samples=num_samples, chain=chain,
+                      partition=partition, shuffle=shuffle,
+                      order_windows=order_windows, rounds=rounds,
+                      device=device, triple=triple)

@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/``.
 
-Eight kernels, each with a wrapper, a plain PyTorch version and a launch
+Ten kernels, each with a wrapper, a plain PyTorch version and a launch
 counter:
 
 ====================  ===================================  ==========================
@@ -18,6 +18,10 @@ index_general_wide    ``index_general_wide_ref``           ``ops/core.py``
 index_amortized_wide  ``epoch_indices_amortized_ref``      ``ops/xla.py``
                       (int64 lanes)                        ``_epoch_indices_amortized``
                                                            and ``_window_order_ids``
+index_positions       ``index_positions_ref`` (the         ``ops/xla.py``
+index_positions_wide  remainder chain or given positions,  ``elastic_indices_jax``,
+                      then ``core.stream_indices_at_``     ``stream_indices_at_jax``
+                      ``generic``)
 mixture_source_keys   ``mixture_source_keys_ref``          ``ops/mixture.py``
                                                            ``_fused_mixture_eval``
                                                            (its [S] key vectors,
@@ -34,7 +38,7 @@ shard_expand          ``shard_expand_ref``                 ``sampler/shard_mode.
 ====================  ===================================  ==========================
 
 (paths of the JAX package ``partiallyshuffledistributedsampler_tpu``).  The
-two ``_wide`` index kernels serve index spaces n >= 2^31 with int64 output;
+three ``_wide`` index kernels serve index spaces n >= 2^31 with int64 output;
 the others take n < 2^31 and write int32.  Each wrapper refuses the other
 width, so a wide config is never narrowed.  ``mixture_fused`` takes uint32
 or uint64 positions and writes int32 or int64 ids, by the mixture's sizes;
@@ -68,6 +72,7 @@ built or imported from CUDA when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -105,6 +110,7 @@ FOLD_WORDS_CAP = 576
 #: kernel launches per wrapper (reset with ``reset_launches``)
 launches = {"index_general": 0, "index_amortized": 0,
             "index_general_wide": 0, "index_amortized_wide": 0,
+            "index_positions": 0, "index_positions_wide": 0,
             "mixture_source_keys": 0, "mixture_fused": 0,
             "shard_row_keys": 0, "shard_expand": 0}
 
@@ -200,14 +206,19 @@ def _load(name: str) -> ctypes.CDLL:
         keys = [u32, u32, u32, ptr]  # seed_lo, seed_hi, epoch, seeds
         if name == "index":
             fns = (lib.psds_index_general, lib.psds_index_general_wide,
-                   lib.psds_index_amortized, lib.psds_index_amortized_wide)
+                   lib.psds_index_amortized, lib.psds_index_amortized_wide,
+                   lib.psds_index_positions, lib.psds_index_positions_wide)
             general = [ptr, u64, u32, u32, u64, u32, *keys, i32, i32, i32,
                        i32, ptr]
             amortized = [ptr, u64, u32, u32, u64, u32, *keys, i32, i32, ptr]
+            positions = [ptr, ptr, u64, u64, u32, u32, u32, ptr, u32, u64,
+                         u64, u32, *keys, i32, i32, i32, i32, ptr]
             lib.psds_index_general.argtypes = general
             lib.psds_index_general_wide.argtypes = general
             lib.psds_index_amortized.argtypes = amortized
             lib.psds_index_amortized_wide.argtypes = amortized
+            lib.psds_index_positions.argtypes = positions
+            lib.psds_index_positions_wide.argtypes = positions
         elif name == "shard":
             fns = (lib.psds_shard_row_keys, lib.psds_shard_expand)
             lib.psds_shard_row_keys.argtypes = [ptr, ptr, ptr, u64, ptr, u32,
@@ -501,6 +512,236 @@ def index_amortized_wide(n: int, window: int, seed, epoch, rank: int,
     return _amortized(True, n, window, seed, epoch, rank, world,
                       drop_last=drop_last, order_windows=order_windows,
                       rounds=rounds, device=device, triple=triple)
+
+
+# -------------------------------------------------------------- positions
+#: uint64 words of one reshard layer in the chain table
+#: (``csrc/index_kernels.cu`` LAYER_WORDS): the add (consumed*world
+#: strided, consumed blocked), num_samples, the gap ns - consumed, its magic
+#: multiplier and packed shifts (s1 | s2 << 8), the modulus after the layer
+#: (the next outer layer's remaining count, n after the outermost), its
+#: magic multiplier and packed shifts
+LAYER_WORDS = 8
+#: cached device chain tables: (n, chain, partition, device) -> tensor
+_chain_tables: dict = {}
+_CHAIN_TABLES_CAP = 16
+
+
+def _divisor(d: int, bits: int) -> list:
+    """A divisor's table words: d, its magic multiplier, s1 | s2 << 8."""
+    mult, s1, s2 = fastdiv.magic(d, bits)
+    return [d, mult, s1 | (s2 << 8)]
+
+
+def _as_chain(chain) -> tuple:
+    return tuple(tuple(int(v) for v in layer) for layer in chain)
+
+
+@functools.lru_cache(maxsize=64)
+def chain_plan(n: int, chain: tuple, partition: str, wide: bool) -> tuple:
+    """``(words, first)`` of a reshard chain (the outermost-first
+    ``(world, num_samples, consumed)`` triples of ``core.elastic_chain``):
+    the chain table as uint64 words, ``LAYER_WORDS`` a layer, innermost
+    layer first, with every divisor's magic numbers for 32-bit (n < 2^31)
+    or 64-bit positions; and the innermost remaining count R, the modulus
+    of the lanes' first positions, as a divisor's words ``(R, mult,
+    shift)``.  Raises ``ValueError`` on a chain the law cannot
+    take, whichever route runs: an empty chain, a world below 1, a layer
+    fully consumed (as ``core.remaining_stream_positions``), and for
+    n < 2^31 a layer constant of 2^32 or more (the reference casts them to
+    uint32)."""
+    if partition not in ("strided", "blocked"):
+        raise ValueError(
+            f"partition must be 'strided' or 'blocked', got {partition!r}")
+    if not chain:
+        raise ValueError("the reshard chain is empty: it holds at least the "
+                         "base epoch's layer")
+    bits = 64 if wide else 32
+    for i, (world, ns, consumed) in enumerate(chain):
+        if world < 1:
+            raise ValueError(
+                f"world must be >= 1, got {world} in reshard layer {i}")
+        if consumed >= ns:
+            raise ValueError(
+                f"epoch fully consumed (consumed={consumed} >= "
+                f"num_samples={ns}); the remainder is empty")
+        if consumed < 0:
+            raise ValueError(
+                f"consumed must be >= 0, got {consumed} in reshard layer {i}")
+    words = []
+    for i in range(len(chain) - 1, -1, -1):
+        world, ns, consumed = chain[i]
+        if i == 0:
+            after = n
+        else:
+            w_prev, ns_prev, c_prev = chain[i - 1]
+            after = (ns_prev - c_prev) * w_prev
+        gap = ns - consumed
+        if partition == "strided":
+            add, used = consumed * world, {"consumed*world": consumed * world}
+        else:
+            add, used = consumed, {"num_samples": ns, "consumed": consumed}
+        used["the remaining count after it"] = after
+        for name, v in used.items():
+            if not wide and v > core._M32:
+                raise ValueError(
+                    f"reshard layer {i}: {name} = {v} does not fit the "
+                    f"uint32 positions of n < 2^31")
+        words += [add, ns, *_divisor(gap, bits), *_divisor(after, bits)]
+    world, ns, consumed = chain[-1]
+    remaining = (ns - consumed) * world
+    if not wide and remaining > core._M32:
+        raise ValueError(
+            f"the remaining count {remaining} does not fit the uint32 "
+            f"positions of n < 2^31")
+    return np.array(words, dtype=np.uint64), tuple(_divisor(remaining, bits))
+
+
+def chain_table(n: int, chain, partition: str, device) -> torch.Tensor:
+    """The chain table of ``chain_plan`` as an int64 tensor (the uint64
+    bits) on ``device``, built once per ``(n, chain, partition, device)``
+    and cached, so a regen of a known chain copies nothing to the card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    chain = _as_chain(chain)
+    key = (int(n), chain, partition, str(device))
+    table = _chain_tables.get(key)
+    if table is None:
+        words, _first = chain_plan(int(n), chain, partition,
+                                   core.is_wide(n))
+        table = torch.from_numpy(words.view(np.int64)).to(device)
+        if len(_chain_tables) >= _CHAIN_TABLES_CAP:
+            _chain_tables.pop(next(iter(_chain_tables)))
+        _chain_tables[key] = table
+    return table
+
+
+def index_positions_ref(n: int, window: int, seed, epoch, *, positions=None,
+                        rank=None, world=None, num_samples=None, chain=None,
+                        partition: str = "strided", shuffle: bool = True,
+                        order_windows: bool = True,
+                        rounds: int = core.DEFAULT_ROUNDS,
+                        device=None) -> torch.Tensor:
+    """The plain version of ``index_positions(_wide)``: the given
+    ``positions`` (``core.stream_indices_at_generic``), or the rank's
+    remainder-epoch positions composed through ``chain``
+    (``core.rank_positions``, ``core.compose_remainder_chain``, then the
+    same), on ``device`` (the positions' device when they are given)."""
+    law = dict(shuffle=shuffle, order_windows=order_windows, rounds=rounds)
+    if positions is not None:
+        return core.stream_indices_at_generic(positions, n, window, seed,
+                                              epoch, **law)
+    return core.elastic_indices_generic(
+        n, window, seed, epoch, rank, world, num_samples, _as_chain(chain),
+        partition=partition, device=device, **law)
+
+
+def _check_positions_source(positions, rank, world, num_samples,
+                            chain) -> None:
+    """Lanes come from ``positions`` or from ``(rank, world, num_samples,
+    chain)``: exactly one of the two, and each in range."""
+    if positions is not None:
+        if any(v is not None for v in (rank, world, num_samples, chain)):
+            raise ValueError("pass positions, or rank, world, num_samples "
+                             "and chain, not both")
+        if not (isinstance(positions, torch.Tensor)
+                and positions.dtype == torch.int64):
+            raise ValueError("positions must be an int64 tensor")
+        return
+    if any(v is None for v in (rank, world, num_samples, chain)):
+        raise ValueError("pass positions, or rank, world, num_samples and "
+                         "chain")
+    if not 1 <= world <= core.INT32_MAX:
+        raise ValueError(f"world must be in [1, 2^31), got {world}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank must be in [0, {world}), got {rank}")
+    if num_samples < 0:
+        raise ValueError(f"num_samples must be >= 0, got {num_samples}")
+
+
+def _positions(wide: bool, n: int, window: int, seed, epoch, *, positions,
+               rank, world, num_samples, chain, partition: str,
+               shuffle: bool, order_windows: bool, rounds: int, device,
+               triple) -> torch.Tensor:
+    name = "index_positions_wide" if wide else "index_positions"
+    n, window = int(n), int(window)
+    if positions is None:
+        rank, world, num_samples = (None if v is None else int(v)
+                                    for v in (rank, world, num_samples))
+    _check_positions_source(positions, rank, world, num_samples, chain)
+    seed_p, epoch_p = _plain_keys(seed, epoch, triple)
+    _check_width(n, wide)
+    core.check_index_space(n, window)
+    if chain is not None:
+        chain = _as_chain(chain)
+        first = chain_plan(n, chain, partition, wide)[1]
+    dev = positions.device if positions is not None else torch.device(device)
+    law = dict(shuffle=shuffle, order_windows=order_windows, rounds=rounds)
+    if device_kind(dev) == "cpu":
+        return index_positions_ref(
+            n, window, seed_p, epoch_p, positions=positions, rank=rank,
+            world=world, num_samples=num_samples, chain=chain,
+            partition=partition, device=dev, **law)
+    _check_rounds(rounds)
+    if positions is not None:
+        p = positions.contiguous()
+        out = torch.empty(p.shape, dtype=core.out_dtype(n), device=p.device)
+        lanes, first = p.numel(), tuple(_divisor(n, 64 if wide else 32))
+        layers, depth, rank, world = None, 0, 0, 1
+    else:
+        out = torch.empty(num_samples, dtype=core.out_dtype(n), device=dev)
+        lanes, depth = num_samples, len(chain)
+        layers = chain_table(n, chain, partition, out.device).data_ptr()
+    if lanes == 0:
+        return out
+    lib = _load("index")
+    lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    fn = lib.psds_index_positions_wide if wide else lib.psds_index_positions
+    launches[name] += 1
+    _check(name, fn(
+        out.data_ptr(), None if positions is None else p.data_ptr(), lanes,
+        n, window, world, rank, layers, depth, *first, lo, hi, ep, seeds,
+        int(bool(shuffle)), int(bool(order_windows)),
+        int(partition == "strided"), rounds, stream,
+    ))
+    return out
+
+
+def index_positions(n: int, window: int, seed, epoch, *, positions=None,
+                    rank=None, world=None, num_samples=None, chain=None,
+                    partition: str = "strided", shuffle: bool = True,
+                    order_windows: bool = True,
+                    rounds: int = core.DEFAULT_ROUNDS, device="cuda",
+                    triple=None) -> torch.Tensor:
+    """The stream law on positions from another source than ``rank +
+    world*t``, for n < 2^31, int32: the given int64 ``positions`` (any
+    shape, on the launch device; their low 32 bits, mod n), or the rank's
+    ``num_samples`` remainder-epoch positions, composed through the
+    outermost-first reshard ``chain`` of ``core.elastic_chain`` in the
+    kernel (SPEC.md §6), on ``device``."""
+    return _positions(False, n, window, seed, epoch, positions=positions,
+                      rank=rank, world=world, num_samples=num_samples,
+                      chain=chain, partition=partition, shuffle=shuffle,
+                      order_windows=order_windows, rounds=rounds,
+                      device=device, triple=triple)
+
+
+def index_positions_wide(n: int, window: int, seed, epoch, *,
+                         positions=None, rank=None, world=None,
+                         num_samples=None, chain=None,
+                         partition: str = "strided", shuffle: bool = True,
+                         order_windows: bool = True,
+                         rounds: int = core.DEFAULT_ROUNDS, device="cuda",
+                         triple=None) -> torch.Tensor:
+    """``index_positions`` for n >= 2^31: uint64 position math (given
+    positions taken as uint64 bits), int64 output."""
+    return _positions(True, n, window, seed, epoch, positions=positions,
+                      rank=rank, world=world, num_samples=num_samples,
+                      chain=chain, partition=partition, shuffle=shuffle,
+                      order_windows=order_windows, rounds=rounds,
+                      device=device, triple=triple)
 
 
 # ---------------------------------------------------------------- mixture

@@ -325,14 +325,13 @@ def _tensor(vals, device) -> torch.Tensor:
 
 
 def _lane_slots(p: torch.Tensor, spec: MixtureSpec, seed, epoch,
-                shuffle: bool):
+                shuffle: bool, wide: bool):
     """Per lane: ``(slot, rot, wrap, blk)``.  ``slot`` is the pattern slot
     the position draws, ``blk`` its block; ``rot``/``wrap`` are the §8.2a
     rotation and whether the rotated slot wrapped past B (None for static
-    patterns)."""
+    patterns).  ``wide``: ``p`` holds uint64 bits (``core.u64_divmod``)."""
     B = spec.block
-    t = p % B
-    blk = p // B
+    blk, t = core.u64_divmod(p, B) if wide else (p // B, p % B)
     if not spec.rotated(shuffle):
         return t, None, None, blk
     rk = rotation_key(seed, epoch)
@@ -398,7 +397,8 @@ def _draws(spec: MixtureSpec, tab: dict, slot, rot, wrap, blk, wide: bool):
             - tab["prefix"][rot * S + s]
     j = core.wrap_pos(blk * k + cnt, wide)
     n = tab["n"][s]
-    return s, (j // n) & core._M32, j % n
+    pas, u = core.u64_divmod(j, n) if wide else (j // n, j % n)
+    return s, pas & core._M32, u
 
 
 def lane_draws(positions: torch.Tensor, spec: MixtureSpec, seed, epoch, *,
@@ -407,7 +407,7 @@ def lane_draws(positions: torch.Tensor, spec: MixtureSpec, seed, epoch, *,
     offset ``u`` (int64 tensors on the positions' device).  A lane is a
     tail lane of its source where ``u >= nw_s * W_s``."""
     p = core.wrap_pos(positions.to(torch.int64), wide)
-    slot, rot, wrap, blk = _lane_slots(p, spec, seed, epoch, shuffle)
+    slot, rot, wrap, blk = _lane_slots(p, spec, seed, epoch, shuffle, wide)
     return _draws(spec, _source_tables(spec, p.device), slot, rot, wrap, blk,
                   wide)
 
@@ -560,8 +560,8 @@ def _masked_mixture_eval(spec: MixtureSpec, p, slot, rot, wrap, blk, seed,
             # draws of s over the circular slot range [rot, rot+t)
             cnt = cnt + torch.where(wrap, k_s, 0) - c_s[rot]
         j = core.wrap_pos(blk * k_s + cnt, wide)
-        pas = (j // n_s) & core._M32
-        u = j % n_s
+        pas, u = core.u64_divmod(j, n_s) if wide else (j // n_s, j % n_s)
+        pas = pas & core._M32
         if shuffle:
             seed_pair = source_seed_folded(seed, s)
             P = _max_pass(max_position, spec, s)
@@ -618,7 +618,7 @@ def mixture_stream_at_generic(
             max_position = pmax
     wide = bool(big_positions)
     p = core.wrap_pos(p, wide)
-    slot, rot, wrap, blk = _lane_slots(p, spec, seed, epoch, shuffle)
+    slot, rot, wrap, blk = _lane_slots(p, spec, seed, epoch, shuffle, wide)
     fused_ok = bool(shuffle) and spec.fused_applies()
     if fused is None:
         use_fused = fused_ok
@@ -896,8 +896,9 @@ def mixture_stream_at_cuda(
 ) -> torch.Tensor:
     """Random access into the mixture stream on ``device`` (default: the
     current CUDA device; ``positions`` are moved there).  Positions are
-    non-negative.  ``big_positions`` is read off the positions when not
-    given, which waits for them."""
+    int64, taken as uint32 or (``big_positions``) uint64 bits, as the
+    reference casts them.  ``big_positions`` is read off the positions
+    when not given, which waits for them."""
     cuda_kernel.device_kind(device)
     p = torch.as_tensor(positions).to(device=device, dtype=torch.int64)
     pmax = int(p.max()) if p.numel() else 0

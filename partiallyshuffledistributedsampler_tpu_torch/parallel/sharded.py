@@ -12,9 +12,9 @@ The JAX package does the same inside one program with a rank-0-masked
 On the card the agreed triple stays in device memory: the broadcast writes
 it there (NCCL) and the index kernels read it from there
 (``ops/cuda_kernel.py``, ``triple=``), so nothing between the agreement and
-the regen waits for the host.  The elastic remainder law is plain torch
-ops, its keys derived from the agreed tensor with the law's ``mix32`` on
-0-d tensors.
+the regen waits for the host.  The elastic remainder regen reads it the
+same way (``index_positions``, which composes the reshard chain in the
+kernel from a table put on the card when the regen function is made).
 
 The mixture (SPEC.md §8) rides the same agreement: the agreed triple feeds
 the mixture kernels (``mixture_fused``, or ``mixture_source_keys`` for a
@@ -34,7 +34,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..ops import core
+from ..ops import core, cuda_kernel
 from ..ops.cuda import elastic_indices_cuda, epoch_indices_cuda
 from ..ops.cuda_kernel import device_kind
 from ..ops.mixture import (
@@ -180,12 +180,16 @@ def make_elastic_regen_fn(
         return None, 0
     core.check_index_space(n, window)
 
+    if mesh.device_type == "cuda":
+        # the chain table goes to the card here, so a regen copies nothing
+        cuda_kernel.chain_table(n, chain, partition, mesh.device_type)
+
     def fn(triple: torch.Tensor) -> torch.Tensor:
-        seed, epoch = core.triple_seed_epoch(_agree(triple, mesh, axis))
         return elastic_indices_cuda(
-            n, window, seed, epoch, rank, world, num_samples, chain,
+            n, window, None, None, rank, world, num_samples, chain,
             shuffle=shuffle, order_windows=order_windows,
             partition=partition, rounds=rounds, device=mesh.device_type,
+            triple=_agree(triple, mesh, axis),
         )
 
     return fn, num_samples

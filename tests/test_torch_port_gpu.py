@@ -778,3 +778,224 @@ def test_mixture_fold_on_both_sides_of_the_threshold(sources, rounds):
         assert torch.equal(got, ck.mixture_fused_ref(
             keys, spec, seed, epoch, positions=pos, wide_pos=False,
             rounds=rounds))
+
+
+# ------------------------------------------- the elastic remainder, access
+def _deep_layers(n: int, depth: int, seed: int, worlds=(2, 3, 5, 8)):
+    """tests/test_torch_port_elastic.py deep_layers: a cascade of ``depth``
+    layers from a numpy seed, each consuming 0..2 samples a rank."""
+    rng = np.random.default_rng(seed)
+    layers, domain = [], n
+    for _ in range(depth):
+        world = int(rng.choice(worlds))
+        ns = -(-domain // world)
+        consumed = int(rng.integers(0, min(2, ns - 1) + 1))
+        layers.append((world, consumed))
+        domain = (ns - consumed) * world
+    return layers
+
+
+_HUGE_WORLDS = [(3, 5), (2**30 + 7, 0), (2**31 - 1, 0)]
+_TEN_B_LAYER = [(8192, 1_220_000)]
+#: (n, window, new world, layers, law kwargs) of the remainder on the card:
+#: the CPU cases of tests/test_torch_port_elastic.py, rounds 65, 121 and
+#: 4,096, and 64-layer chains narrow and wide
+ELASTIC_CASES = [
+    (100_000, 512, 6, [(8, 3000)], {}),
+    (100_000, 512, 6, [(8, 3000)], {"partition": "blocked"}),
+    (100_003, 512, 5, [(8, 3000), (6, 100), (3, 17)], {"drop_last": True}),
+    (100_003, 512, 5, [(8, 3000), (6, 100), (3, 17)],
+     {"partition": "blocked"}),
+    (50_000, 256, 3, [(4, 2000), (7, 11)], {"order_windows": False}),
+    (50_000, 256, 3, [(4, 2000), (7, 11)], {"shuffle": False}),
+    (50_000, 256, 3, [(4, 2000)], {"rounds": 0}),
+    (50_000, 256, 3, [(4, 2000)], {"rounds": 65}),
+    (50_000, 256, 3, [(4, 2000)], {"rounds": 102}),
+    (50_000, 256, 3, [(4, 2000)], {"rounds": 121, "partition": "blocked"}),
+    (50_000, 256, 3, [(4, 12000)], {"rounds": ck.MAX_ROUNDS}),
+    (1_000_000, 4096, 7, _deep_layers(1_000_000, 64, 1), {}),
+    (1_000_000, 4096, 7, _deep_layers(1_000_000, 64, 2),
+     {"partition": "blocked"}),
+    (2**31 - 1, 8192, 2**31 - 1, _HUGE_WORLDS, {}),
+    (2**31 - 1, 8192, 2**31 - 1, _HUGE_WORLDS, {"partition": "blocked"}),
+    (TEN_B, 8192, 4096, _TEN_B_LAYER, {}),
+    (TEN_B, 8192, 4096, _TEN_B_LAYER + [(1000, 5000), (4096, 10)],
+     {"partition": "blocked"}),
+    (TEN_B, 8192, 4096, _TEN_B_LAYER + _deep_layers(5_758_976, 63, 3), {}),
+    (TEN_B, 8192, 4096, _TEN_B_LAYER + _deep_layers(5_758_976, 63, 3),
+     {"partition": "blocked", "rounds": 121}),
+    (2**31 + 1, 8192, 3, [(2, 2**30 - 1000)], {"rounds": 65}),
+    (2**31 + 1, 8192, 3, [(2, 2**30 - 1000)],
+     {"shuffle": False, "partition": "blocked"}),
+    (2**32 + 4097, 8192, 16, [(2, 2**31 - 1000)],
+     {"drop_last": True, "rounds": ck.MAX_ROUNDS}),
+]
+
+
+def _elastic_id(c):
+    n, window, world, layers, kw = c
+    return (f"n{n}-w{window}-world{world}-{len(layers)}layers-"
+            + "-".join(f"{k}{v}" for k, v in kw.items()))
+
+
+@pytest.mark.parametrize("case", ELASTIC_CASES, ids=_elastic_id)
+def test_positions_kernels_remainder_match_plain_and_numpy(case):
+    n, window, world, layers, kw = case
+    chain, _remaining, ns = core.elastic_chain(n, layers, world,
+                                               kw.get("drop_last", False))
+    law = {k: v for k, v in kw.items() if k != "drop_last"}
+    name = "index_positions_wide" if core.is_wide(n) else "index_positions"
+    for rank in sorted({0, world // 2, world - 1}):
+        ck.reset_launches()
+        got = cuda.elastic_indices_cuda(n, window, 42, 3, rank, world, ns,
+                                        chain, **law)
+        torch.cuda.synchronize()
+        # one launch of the positions kernel, no plain torch law
+        assert ck.launches[name] == 1 and sum(ck.launches.values()) == 1
+        assert got.is_cuda and got.dtype == core.out_dtype(n)
+        assert torch.equal(got, ck.index_positions_ref(
+            n, window, 42, 3, rank=rank, world=world, num_samples=ns,
+            chain=chain, device="cuda", **law))
+        np.testing.assert_array_equal(
+            got.cpu().numpy(),
+            jcpu.elastic_indices_np(n, window, 42, 3, rank, world, layers,
+                                    **kw))
+
+
+#: random-access probes: ordinary, past one epoch, negative and huge
+_PROBES = np.concatenate([
+    np.arange(4), [-1, -2, -(2**31), -(2**63), 2**63 - 1, 2**32, 2**32 - 1],
+    np.random.default_rng(7).integers(-(2**63), 2**63 - 1, 4096,
+                                      dtype=np.int64),
+    np.random.default_rng(8).integers(0, 3 * TEN_B, 4096),
+]).astype(np.int64)
+
+
+@pytest.mark.parametrize("n,window", [(100_000, 512), (2**31 - 1, 8192),
+                                      (2**31 + 1, 8192), (TEN_B, 8192)])
+@pytest.mark.parametrize("rounds", [24, 65, 121, ck.MAX_ROUNDS])
+def test_positions_kernels_random_access(n, window, rounds):
+    name = "index_positions_wide" if core.is_wide(n) else "index_positions"
+    probes = _PROBES if rounds in (24, 65) else _PROBES[:1024]
+    for shuffle in (True, False):
+        ck.reset_launches()
+        got = cuda.stream_indices_at_cuda(probes, n, window, 42, 3,
+                                          shuffle=shuffle, rounds=rounds)
+        torch.cuda.synchronize()
+        assert ck.launches[name] == 1 and sum(ck.launches.values()) == 1
+        assert got.is_cuda and got.dtype == core.out_dtype(n)
+        assert torch.equal(got, ck.index_positions_ref(
+            n, window, 42, 3, positions=torch.from_numpy(probes).cuda(),
+            shuffle=shuffle, rounds=rounds))
+        np.testing.assert_array_equal(
+            got.cpu().numpy(),
+            jcpu.stream_indices_at_np(probes, n, window, 42, 3,
+                                      shuffle=shuffle, rounds=rounds))
+
+
+def test_negative_position_on_the_card():
+    """n = 2^31 + 1, p = -1 is p = 2^64 - 1 as uint64: stream(p) =
+    pi(3); a 2-D int32 tensor of positions keeps its shape."""
+    n = 2**31 + 1
+    assert cuda.stream_indices_at_cuda([-1], n, 8192, 0, 0,
+                                       shuffle=False).tolist() == [3]
+    np.testing.assert_array_equal(
+        cuda.stream_indices_at_cuda([-1], n, 8192, 0, 0).cpu().numpy(),
+        jcpu.stream_indices_at_np(np.array([-1]), n, 8192, 0, 0))
+    p = torch.from_numpy(_PROBES[:64].astype(np.int32).reshape(8, 8))
+    got = cuda.stream_indices_at_cuda(p, 100_000, 512, 5, 1)
+    assert got.shape == (8, 8)
+    np.testing.assert_array_equal(
+        got.cpu().numpy().ravel(),
+        jcpu.stream_indices_at_np(p.numpy().ravel(), 100_000, 512, 5, 1))
+
+
+def test_positions_kernels_device_triple_and_refusals():
+    chain, _r, ns = core.elastic_chain(TEN_B, _TEN_B_LAYER, 4096)
+    bits = np.array(core.seed_triple(0x1_0000_0007, 3), dtype=np.uint32)
+    triple = torch.from_numpy(bits.view(np.int32)).cuda()
+    want = cuda.elastic_indices_cuda(TEN_B, 8192, 0x1_0000_0007, 3, 7, 4096,
+                                     ns, chain)
+    assert torch.equal(want, cuda.elastic_indices_cuda(
+        TEN_B, 8192, None, None, 7, 4096, ns, chain, triple=triple))
+    # the same refusals as the plain route (tests/test_torch_port_elastic.py)
+    with pytest.raises(ValueError, match="fully consumed"):
+        ck.index_positions(1000, 64, 0, 0, rank=0, world=2, num_samples=10,
+                           chain=((2, 500, 500),))
+    with pytest.raises(ValueError, match="rank"):
+        ck.index_positions(1000, 64, 0, 0, rank=2, world=2, num_samples=10,
+                           chain=((2, 500, 490),))
+    with pytest.raises(ValueError, match="rounds"):
+        ck.index_positions(1000, 64, 0, 0, rank=0, world=2, num_samples=10,
+                           chain=((2, 500, 490),),
+                           rounds=ck.MAX_ROUNDS + 1)
+
+
+#: tests/test_torch_port_elastic.py::JAX_CKPT_ELASTIC: the JAX sampler's
+#: checkpoint after a reshard 8 -> 6 at offset 1000, 500 samples on
+JAX_CKPT_ELASTIC = {
+    "spec_version": 2, "kind": "single", "seed": 11, "epoch": 2,
+    "offset": 500, "n": 100000, "num_replicas": 6, "window": 8192,
+    "rounds": 24, "order_windows": True, "partition": "strided",
+    "shuffle": True, "drop_last": False, "elastic": {"layers": [[8, 1000]]},
+}
+
+
+def test_sampler_elastic_remainder_from_jax_checkpoint_on_the_card():
+    for rank in range(6):  # resumed at the checkpoint's world
+        ck.reset_launches()
+        s = PartiallyShuffleDistributedSampler(100_000, 6, rank, window=8192,
+                                               seed=11)
+        s.load_state_dict(dict(JAX_CKPT_ELASTIC))
+        want = jcpu.elastic_indices_np(100_000, 8192, 11, 2, rank, 6,
+                                       [(8, 1000)])
+        assert list(s) == want[500:].tolist()
+        assert ck.launches["index_positions"] == 1
+    for rank in range(4):  # resharded 6 -> 4 from it
+        ck.reset_launches()
+        s = PartiallyShuffleDistributedSampler.reshard_from_state_dict(
+            dict(JAX_CKPT_ELASTIC), 4, rank)
+        assert s.backend == "cuda"
+        assert list(s) == jcpu.elastic_indices_np(
+            100_000, 8192, 11, 2, rank, 4, [(8, 1000), (6, 500)]).tolist()
+        assert ck.launches["index_positions"] == 1
+
+
+def test_elastic_regen_fn_on_the_agreed_triple_without_host_sync():
+    import torch.distributed as dist
+
+    from partiallyshuffledistributedsampler_tpu_torch import parallel
+
+    owned = not dist.is_initialized()
+    if owned:
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+    try:
+        mesh = parallel.data_mesh()
+        layers = [(256, 39_062_000)]
+        fn, ns = parallel.make_elastic_regen_fn(TEN_B, 8192, layers,
+                                                mesh=mesh)
+        triple = parallel.make_seed_triple(5, 2, mesh=mesh)
+        fn(triple)  # warm-up: the communicator, the allocator
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(triple)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert ck.launches["index_positions_wide"] == 1
+        assert sum(ck.launches.values()) == 1
+        assert got.numel() == ns
+        np.testing.assert_array_equal(
+            got.cpu().numpy(),
+            jcpu.elastic_indices_np(TEN_B, 8192, 5, 2, 0, 1, layers))
+    finally:
+        if owned:
+            dist.destroy_process_group()

@@ -214,6 +214,7 @@ def test_cpu_routing_launches_no_kernel():
     assert ck.launches == {"index_general": 0,
                            "index_amortized": 0, "index_general_wide": 0,
                            "index_amortized_wide": 0,
+                           "index_positions": 0, "index_positions_wide": 0,
                            "mixture_source_keys": 0, "mixture_fused": 0,
                            "shard_row_keys": 0, "shard_expand": 0}
 
