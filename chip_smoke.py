@@ -73,6 +73,19 @@ plain version and its bound.  Every failure exits non-zero.
   ``DataLoader`` and the iterator's ``elastic_epoch`` at 1B; the slice-2
   main path's remainders launch ``index_positions_wide``; phase 6 times
   both against the plain law and the kernel regen.
+* Slice 8, ``HostDataLoader`` over host-resident data (phase 16,
+  ``host_loader_phase``): on ``index_backend="cuda"`` over one 4 GB
+  ``np.arange(1e9, int32)`` (a batch value is its row id), C4 1B/8192 at
+  world 256 plain and after a reshard 128 -> 256, M1 at world 256 over
+  concatenated data and per-source views, S1 at world 8, a
+  ``StreamSpec.plain_stream(1e8, 8192)`` at horizons 0 and 1, and a
+  boundary-prefetched epoch: each regen launches its kernels once, and
+  every served batch is a CUDA tensor equal to the port's stream (on the
+  card, and at sampled lanes from the CPU route); the epoch boundary at
+  1B/world 256; then T1 (C4 GPT-2-small token rows) and T2 (ImageNet
+  224x224x3 rows), cut in rows to fit host memory, with a per-row pattern
+  checked on every served batch: gather and copy times, the host link,
+  batches/s and ``StallProbe``'s stall share behind a synthetic step.
 
 ``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
 the ``shard_row_keys`` and ``shard_expand`` times, the elastic remainder
@@ -213,6 +226,19 @@ SHARD_LANE_OPS_V1 = 9
 #: keys (14), W and body (4); per pairing constant mix32, xor, multiply,
 #: compare, mod and select (11), two schedules of `rounds`
 ROW_BASE_OPS, ROW_KEY_OPS = 57, 11
+#: slice 8, HostDataLoader timing cells, rows cut to fit host memory:
+#: (label, rows, row shape, dtype, world, batch, timed steps, stall steps).
+#: T1: the C4 config's GPT-2-small token rows (1,024 uint16 tokens, 2 KB),
+#: 4,194,304 rows (8 GiB; C4 has ~365M documents); T2: ImageNet/ResNet-50
+#: decoded 224x224x3 uint8 rows, 65,536 rows (9.9 GB; ImageNet-1k has
+#: 1,281,167)
+T_CASES = (("T1 (C4 / GPT-2 small rows)", 4_194_304, (1024,), "uint16", 8,
+            32, 2000, 200),
+           ("T2 (ImageNet / ResNet-50 rows)", 65_536, (224, 224, 3), "uint8",
+            1, 256, 64, 64))
+#: the kernels the slice-8 main path's regens launch
+SLICE8 = ("index_amortized", "index_positions", "mixture_fused",
+          "shard_row_keys", "shard_expand")
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
@@ -517,6 +543,421 @@ def gloo_worker(rank: int, port: int) -> None:
         }))
     finally:
         dist.destroy_process_group()
+
+
+def host_loader_phase(card: str, max_sm_mhz: float) -> dict:
+    """Phase 16, the slice-8 main path: ``HostDataLoader`` over host data
+    on ``index_backend="cuda"``.  (a) one 4 GB id array whose value is the
+    row: each case's regen launches its kernels once and no regen runs on
+    the CPU; every served batch is a CUDA tensor equal to the port's own
+    stream (the entry points on the card, and the CPU route at sampled
+    lanes); (b) T1/T2 rows with a per-row pattern checked on every served
+    batch: gather and copy times, the host link, batches/s and the stall
+    share behind a synthetic step; (c) the epoch boundary at 1B/world 256.
+    Returns the launches of the phase's regens."""
+    import numpy as np
+    import torch
+
+    import partiallyshuffledistributedsampler_tpu_torch as pt
+    from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        core,
+        cuda_kernel as ck,
+        host_array,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.sampler import (
+        shard_mode as SM,
+    )
+
+    dev = torch.device("cuda")
+    ck.reset_launches()
+    mem = subprocess.run(["free", "-g"], capture_output=True, text=True)
+    print("host memory before the phase (free -g):\n" + mem.stdout.strip())
+    t0 = time.perf_counter()
+    base = np.arange(N_C4, dtype=np.int32)  # row r holds r
+    print(f"host data: np.arange(1e9, int32), {base.nbytes / 1e9:.1f} GB, "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches8 = {k: 0 for k in ck.launches}
+    rng = np.random.default_rng(8)
+
+    def regen(fn, kernels, label):
+        """``fn()`` (a loader call) launches each of ``kernels`` once (or,
+        for a dict, as often as it says) and nothing else (None: anything):
+        the regen ran on the card, never on the CPU.  The launches count to
+        the main path."""
+        before = dict(ck.launches)
+        out = fn()
+        got = {k: v - before[k] for k, v in ck.launches.items()
+               if v != before[k]}
+        for k, v in got.items():
+            launches8[k] += v
+        want = kernels if isinstance(kernels, dict) else {
+            k: 1 for k in kernels or ()}
+        check(kernels is None or got == want,
+              f"{label}: the regen launched {got}, not {kernels} once each")
+        return out
+
+    def serve(loader, epoch, want, kernels, label, layers=None, cpu=None,
+              cpu_lanes=None, steps=300, tail=20):
+        """``steps`` batches of ``epoch`` and the last ``tail`` through a
+        ``start_step`` resume, each held on the card against ``want`` (the
+        port's stream); ``cpu(t)`` gives the CPU route's values at 4096
+        sampled lanes ``t`` below ``cpu_lanes`` (default: all served)."""
+        B = loader.batch
+        it = regen(lambda: loader.epoch(epoch, layers=layers), kernels, label)
+        total = loader._steps_for(len(loader.epoch_indices(epoch, layers)))
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        firsts = []
+        for s, b in enumerate(it):
+            check(b.is_cuda and b.dtype == want.dtype and b.numel() == B,
+                  f"{label}: batch {s} is not a CUDA {want.dtype}[{B}]")
+            bad += (b != want[s * B:(s + 1) * B]).sum()
+            firsts.append(b)
+            if s + 1 == steps:
+                break
+        it.close()
+        start = total - tail
+        it = regen(lambda: loader.epoch(epoch, start_step=start,
+                                        layers=layers), kernels, label)
+        n_tail = 0
+        for s, b in enumerate(it, start):
+            bad += (b != want[s * B:(s + 1) * B]).sum()
+            n_tail += 1
+        check(n_tail == tail, f"{label}: resume served {n_tail} batches")
+        served = torch.cat(firsts)
+        lanes = np.sort(rng.choice(cpu_lanes or served.numel(), 4096,
+                                   replace=False))
+        cpu_ok = np.array_equal(served.cpu().numpy()[lanes],
+                                np.asarray(cpu(lanes)))
+        ok = int(bad) == 0 and cpu_ok
+        print(f"loader {label}: {steps} batches + {tail} resumed at step "
+              f"{start} of {total}, CUDA {want.dtype}[{B}], equal to the "
+              f"port's stream on the card: {int(bad) == 0}; 4096 sampled "
+              f"lanes equal to the CPU route: {cpu_ok}")
+        check(ok, f"loader {label}: served batches differ from the stream")
+        return served
+
+    # (a) C4 1B / 8192, world 256, batch 512: plain and elastic
+    rank = 5
+    c4 = pt.HostDataLoader(base, window=W, batch=512, rank=rank, world=256,
+                           boundary_prefetch=False)
+    check(c4.device.type == "cuda" and c4.index_backend == "cuda",
+          "the loader's defaults are not the card's")
+    serve(c4, 1, pt.epoch_indices_cuda(N_C4, W, 0, 1, rank, 256),
+          ("index_amortized",), "C4 1B/8192 world=256",
+          cpu=lambda t: pt.stream_indices_at_cpu(
+              rank + 256 * torch.from_numpy(t), N_C4, W, 0, 1))
+    ns128, _ = core.shard_sizes(N_C4, 128, False)
+    layers = [(128, ns128 // 2)]
+    chain, remaining, ns_el = core.elastic_chain(N_C4, layers, 256)
+    serve(c4, 1, pt.elastic_indices_cuda(N_C4, W, 0, 1, rank, 256, ns_el,
+                                         chain),
+          ("index_positions",), f"C4 epoch(1, layers={layers})",
+          layers=layers,
+          cpu=lambda t: pt.stream_indices_at_cpu(core.compose_remainder_chain(
+              (rank + 256 * torch.from_numpy(t)) % remaining, chain,
+              "strided", False), N_C4, W, 0, 1))
+    # M1 at world 256: concatenated (global ids) and per-source views
+    m1 = pt.MixtureSpec(M1_SOURCES, M1_WEIGHTS, windows=W)
+    want_g = pt.mixture_epoch_indices_cuda(m1, 0, 2, rank, 256)
+    cpu_m1 = lambda t: pt.mixture_stream_at_cpu(  # noqa: E731
+        rank + 256 * torch.from_numpy(t), m1, 0, 2)
+    mix = pt.HostDataLoader(base, batch=512, rank=rank, world=256,
+                            mixture=m1, boundary_prefetch=False)
+    serve(mix, 2, want_g, ("mixture_fused",), "M1 world=256 concatenated",
+          cpu=cpu_m1)
+    views = [base[:n] for n in M1_SOURCES]
+    per = pt.HostDataLoader(views, batch=512, rank=rank, world=256,
+                            mixture=m1, boundary_prefetch=False)
+    bases = torch.tensor(m1.bases, dtype=torch.int32, device=dev)
+    want_l = want_g - bases[torch.searchsorted(bases, want_g, right=True) - 1]
+    serve(per, 2, want_l, ("mixture_fused",),
+          "M1 world=256 per-source views (local ids)",
+          cpu=lambda t: m1.decompose(np.asarray(cpu_m1(t)))[1])
+    del want_g, want_l
+    # S1 shards at world 8: the shard ids and their expansion on the card
+    sz1 = np.full(SHARDS, SHARD_M, dtype=np.int64)
+    sh = pt.HostDataLoader(base[:SHARDS * SHARD_M], batch=512, rank=3,
+                           world=8, shard_sizes=sz1, boundary_prefetch=False)
+    sids = pt.epoch_indices_cuda(SHARDS, SHARD_W, 0, 1, 3, 8)
+    first = SM.expand_shard_indices_cpu(sids[:64].cpu().numpy(), sz1, seed=0,
+                                        epoch=1)
+    serve(sh, 1, SM.expand_shard_indices_cuda(sids, sz1, seed=0, epoch=1),
+          ("index_amortized", "shard_row_keys", "shard_expand"),
+          "S1 100,000 x 1,000 world=8 (CPU route: the first 64 shards)",
+          cpu=lambda t: first.numpy()[t], cpu_lanes=first.numel())
+    # the moving-horizon stream, horizons 0 and 1
+    st = pt.HostDataLoader(base, window=W, batch=512, rank=rank, world=256,
+                           streaming=True, horizon=N_1E8,
+                           boundary_prefetch=False)
+    for g in (0, 1):
+        want = pt.epoch_indices_cuda(N_1E8, W, 0, g, rank, 256) + g * N_1E8
+        got = serve(st, g, want, ("index_amortized",),
+                    f"StreamSpec.plain_stream(1e8, 8192) world=256 horizon "
+                    f"{g}",
+                    cpu=lambda t, g=g: pt.stream_indices_at_cpu(
+                        rank + 256 * torch.from_numpy(t), N_1E8, W, 0, g)
+                    + g * N_1E8)
+        inside = bool(((got >= g * N_1E8) & (got < (g + 1) * N_1E8)).all())
+        print(f"horizon {g}: every served value in [{g}*H, {g + 1}*H): "
+              f"{inside}")
+        check(inside, f"horizon {g} served a value outside its block")
+    # a boundary-prefetched epoch e+1: adopted, nothing in the foreground
+    # (the worker launches as soon as epoch() returns, so each epoch() is
+    # counted together with the worker it kicks)
+    bp = pt.HostDataLoader(base, window=W, batch=512, rank=rank, world=256)
+    it = regen(lambda: (bp.epoch(0), bp._boundary_thread.join(60))[0],
+               {"index_amortized": 2}, "epoch 0 and the worker's epoch 1")
+    next(it)
+    it.close()
+    it = regen(lambda: (bp.epoch(1), bp._boundary_thread.join(60))[0],
+               {"index_amortized": 1},
+               "the adopted epoch 1 (only the worker's epoch 2 may launch)")
+    want = pt.epoch_indices_cuda(N_C4, W, 0, 1, rank, 256)
+    ok = all(torch.equal(b, want[s * 512:(s + 1) * 512])
+             for s, b in zip(range(100), it))
+    it.close()
+    print(f"boundary prefetch: epoch 1 adopted the worker's array (one "
+          f"launch in all, the worker's regen of epoch 2), 100 batches "
+          f"equal to the stream: {ok}")
+    check(ok, "the boundary-prefetched epoch differs from the stream")
+    del c4, mix, per, sh, st, bp, views, sids
+    torch.cuda.empty_cache()
+
+    # (c) the epoch boundary at 1B / world 256, boundary_prefetch=False
+    walls = {}
+    for backend, reps in (("cuda", 5), ("cpu", 1)):
+        ld = pt.HostDataLoader(base, window=W, batch=512, rank=rank,
+                               world=256, index_backend=backend,
+                               boundary_prefetch=False)
+        if backend == "cuda":
+            regen(lambda: ld.epoch_indices(0), None, "warm-up")
+        walls[backend] = []
+        for e in range(1, reps + 1):
+            ld.clear_cache()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            it = regen(lambda: ld.epoch(e), None, "epoch boundary")
+            walls[backend].append((time.perf_counter() - t0) * 1e3)
+            it.close()
+    kernel_ms = device_ms(lambda: pt.epoch_indices_cuda(N_C4, W, 0, 1, rank,
+                                                        256), 20, max_sm_mhz)
+    idx_dev = pt.epoch_indices_cuda(N_C4, W, 0, 1, rank, 256)
+    torch.cuda.synchronize()
+    back = {"pageable .cpu()": [], "pinned (ops.host_array)": []}
+    for _ in range(6):
+        for form, fn in zip(back, (lambda: idx_dev.cpu().numpy(),
+                                   lambda: host_array(idx_dev))):
+            t0 = time.perf_counter()
+            fn()
+            back[form].append((time.perf_counter() - t0) * 1e3)
+    print(f"epoch() at 1B/8192 world=256, boundary_prefetch=False: "
+          f"index_backend='cuda' wall median "
+          f"{float(np.median(walls['cuda'])):.4f} ms (min "
+          f"{min(walls['cuda']):.4f}): kernel {kernel_ms:.4f} ms device, "
+          f"readback of {idx_dev.numel() * 4 / 1e6:.1f} MB median (of 5 "
+          f"after one) " + ", ".join(
+              f"{form} {float(np.median(v[1:])):.4f} ms"
+              for form, v in back.items())
+          + f"; index_backend='cpu' "
+          f"{', '.join(f'{w:.1f}' for w in walls['cpu'])} ms | {card}")
+    # the boundary gap: six boundaries, each epoch entered 100 batches
+    # before its end (time enough for the worker's regen)
+    for prefetch in (True, False):
+        ld = pt.HostDataLoader(base, window=W, batch=512, rank=rank,
+                               world=256, depth=2,
+                               boundary_prefetch=prefetch)
+        last = ld.steps_per_epoch - 100
+        before = dict(ck.launches)
+        gaps, calls = [], []
+        it = ld.epoch(0, start_step=last)
+        for e in range(1, 7):
+            for _ in it:
+                pass
+            t0 = time.perf_counter()
+            it = ld.epoch(e, start_step=last)
+            t1 = time.perf_counter()
+            b = next(it)
+            torch.cuda.current_stream().synchronize()
+            gaps.append((time.perf_counter() - t0) * 1e3)
+            calls.append((t1 - t0) * 1e3)
+            check(b.is_cuda, "the boundary batch is not on the card")
+        it.close()
+        if ld._boundary_thread is not None:
+            ld._boundary_thread.join(60)
+        for k, v in ck.launches.items():
+            launches8[k] += v - before[k]
+        print(f"epoch boundary gap (the last batch of an epoch to the first "
+              f"of the next on the card), boundary_prefetch={prefetch}: "
+              f"median {float(np.median(gaps)):.4f} ms of "
+              f"{', '.join(f'{g:.4f}' for g in gaps)}; of which the epoch() "
+              f"call median {float(np.median(calls)):.4f} ms, the first "
+              f"batch (producer start, gather, copy) the rest | {card}")
+    del base, idx_dev
+    launches8 = {k: launches8[k] + v for k, v in
+                 host_loader_timing(card, max_sm_mhz).items()}
+    return launches8
+
+
+def host_loader_timing(card: str, max_sm_mhz: float) -> dict:
+    """Phase 16 (b): T1 and T2 rows through ``HostDataLoader`` on the card,
+    every served batch checked against its row pattern on the card.
+    Returns the launches of the loaders' regens."""
+    import numpy as np
+    import torch
+
+    import partiallyshuffledistributedsampler_tpu_torch as pt
+    from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        cuda_kernel as ck,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.utils.stall_probe import (
+        StallProbe,
+    )
+
+    dev = torch.device("cuda")
+    before = dict(ck.launches)
+
+    class TimedLoader(pt.HostDataLoader):
+        """The loader with each step's gather (host clock) and copy (CUDA
+        events on its copy stream) timed."""
+
+        times: list = []
+
+        def _gather(self, sl):
+            t0 = time.perf_counter()
+            out = super()._gather(sl)
+            self._gather_s = time.perf_counter() - t0
+            return out
+
+        def _to_device(self, host):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record(self._copy_stream)
+            out, ev = super()._to_device(host)
+            b.record(self._copy_stream)
+            self.times.append((self._gather_s, a, b))
+            return out, ev
+
+    def pattern_errors(b, ids):
+        """Bytes of a batch that break the pattern: each row's first 4
+        bytes hold its row id, every other byte the id mod 251."""
+        b8 = b.view(torch.uint8).reshape(b.shape[0], -1)
+        hdr = b8[:, :4].contiguous().view(torch.int32).reshape(-1)
+        return ((hdr != ids).sum()
+                + (b8[:, 4:] != (hdr % 251).to(torch.uint8)[:, None]).sum())
+
+    # the host link: one 256 MB pinned copy, best of 5 after a warm-up
+    src = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(src.shape, dtype=torch.uint8, device=dev)
+    side = torch.cuda.Stream()
+    link = []
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+        b.synchronize()
+        link.append(a.elapsed_time(b))
+    link_gbps = src.numel() / (min(link[1:]) / 1e3) / 1e9
+    print(f"host link: one 256 MB pinned host-to-device copy, best of 5: "
+          f"{min(link[1:]):.4f} ms, {link_gbps:.2f} GB/s | {card}")
+    del src, dst
+    # the synthetic step's busy-wait: 5 ms at the maximum SM clock
+    cycles = int(5e-3 * max_sm_mhz * 1e6)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    sleep_ms = a.elapsed_time(b)
+
+    for label, rows, shape, dtype, world, batch, steps, stall_steps in T_CASES:
+        t0 = time.perf_counter()
+        data = np.empty((rows,) + shape, dtype=dtype)
+        b8 = data.reshape(rows, -1).view(np.uint8)
+        b8[:, 4:] = (np.arange(rows) % 251).astype(np.uint8)[:, None]
+        b8[:, :4] = np.arange(rows, dtype=np.int32).view(np.uint8).reshape(
+            rows, 4)
+        fill_s = time.perf_counter() - t0
+        row_bytes = b8.shape[1]
+        print(f"{label}: {rows} rows of {shape} {np.dtype(dtype).name} "
+              f"({row_bytes} B), {data.nbytes / 2**30:.2f} GiB host, filled "
+              f"in {fill_s:.2f} s; world {world}, batch {batch}")
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        checked = 0
+
+        def ids_of(loader, epoch):
+            return torch.from_numpy(loader.epoch_indices(epoch).astype(
+                np.int32)).to(dev)
+
+        # no consumer work: a warm-up pass (pinned and device caches),
+        # then the timed pass; the batches are held and checked after it
+        ld = TimedLoader(data, window=W, batch=batch, rank=3 % world,
+                         world=world, depth=2, boundary_prefetch=False)
+        for epoch in (0, 1):
+            TimedLoader.times = []
+            ids = ids_of(ld, epoch)
+            it = ld.epoch(epoch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            held = [b for _, b in zip(range(steps), it)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            it.close()
+            for s, b in enumerate(held):
+                check(b.is_cuda and b.dtype == ld._dtypes["data"]
+                      and tuple(b.shape) == (batch,) + shape,
+                      f"{label}: batch {s} is not a CUDA batch of rows")
+                bad += pattern_errors(b, ids[s * batch:(s + 1) * batch])
+            checked += len(held)
+            del held
+        gather = [g * 1e3 for g, _, _ in TimedLoader.times[:steps]]
+        h2d = [a.elapsed_time(b) for _, a, b in TimedLoader.times[:steps]]
+        step_bytes = batch * row_bytes
+        h2d_ms = float(np.median(h2d))
+        print(f"{label}: per step gather median {float(np.median(gather)):.4f}"
+              f" ms (min {min(gather):.4f}), host-to-device copy median "
+              f"{h2d_ms:.4f} ms (min {min(h2d):.4f}) for {step_bytes / 1e6:.3f}"
+              f" MB: {step_bytes / h2d_ms / 1e6:.2f} GB/s against the link's "
+              f"{link_gbps:.2f}; no consumer work (depth 2): "
+              f"{steps / wall:.1f} batches/s over {steps} steps | {card}")
+        for depth in (1, 2):
+            ld = pt.HostDataLoader(data, window=W, batch=batch,
+                                   rank=3 % world, world=world, depth=depth,
+                                   boundary_prefetch=False)
+            epoch = 1 + depth
+            ids = ids_of(ld, epoch)
+            it = ld.epoch(epoch)
+            probe = StallProbe(it)
+            gen = iter(probe)
+            t0 = time.perf_counter()
+            for s, b in enumerate(gen):
+                bad += pattern_errors(b, ids[s * batch:(s + 1) * batch])
+                torch.cuda._sleep(cycles)
+                torch.cuda.current_stream().synchronize()
+                if s + 1 == stall_steps:
+                    break
+            gen.close()
+            it.close()
+            wall = time.perf_counter() - t0
+            rep = probe.report()
+            checked += rep["batches"]
+            print(f"{label}: StallProbe depth {depth} behind a synthetic step "
+                  f"(one pattern reduction over the batch, a {sleep_ms:.3f} "
+                  f"ms busy-wait, a stream synchronize): stall "
+                  f"{rep['stall_pct']:.3f} % over {rep['batches']} steps "
+                  f"(wait {rep['wait_s'] * 1e3:.1f} ms, compute "
+                  f"{rep['compute_s'] * 1e3:.1f} ms, "
+                  f"{rep['batches'] / wall:.1f} steps/s) | {card}")
+        errors = int(bad)
+        print(f"{label}: {checked} served batches checked against the row "
+              f"pattern on the card: {errors} bytes wrong")
+        check(errors == 0, f"{label}: a served batch breaks its pattern")
+        del data, b8, ld
+        torch.cuda.empty_cache()
+    return {k: v - before[k] for k, v in ck.launches.items()}
 
 
 def main() -> None:
@@ -1640,6 +2081,15 @@ def main() -> None:
                                    and res["own_mixture_seed_differs"]),
               "rank 1's own seed gives rank 0's row: the check is vacuous")
 
+    # ------------------------------------------- slice-8 main path
+    # 16: HostDataLoader over host data on the card (counters reset per
+    # regen inside; launches8 sums them)
+    launches8 = host_loader_phase(card, max_sm_mhz)
+    print(f"kernels (slice-8 main path): {json.dumps(launches8)}")
+    for name in SLICE8:
+        check(launches8[name] > 0,
+              f"kernel {name} was not launched on the slice-8 main path")
+
     # ---------------------------------------------------------------- 6
     floor_ms = launch_floor_ms(max_sm_mhz)
     print(f"launch floor (empty kernel, back to back): {floor_ms:.4f} ms | "
@@ -2131,7 +2581,8 @@ def main() -> None:
             "replaces": replaces[name],
             # the count over the main paths' runs
             "launches": sum(run.get(name, 0) for run in (
-                launches, launches2, launches3, launches3b, launches4)),
+                launches, launches2, launches3, launches3b, launches4,
+                launches8)),
             "max_abs_err": stats[name]["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

@@ -12,6 +12,10 @@ multi-corpus mixture (SPEC.md §8: ``MixtureSpec``,
 ``PartialShuffleMixtureSampler``, ``MixtureEpochIterator``) and
 shard-index mode (SPEC.md §7: ``PartialShuffleShardSampler``,
 ``expand_shard_indices_cuda``) run on the card through their own kernels.
+Data that lives in host memory reaches the card through
+``HostDataLoader`` (pinned gathers, asynchronous copies), whose stream is
+a ``PartialShuffleSpec`` (or, moving-horizon, a ``StreamSpec``) with the
+JAX package's wire form.
 """
 
 from .ops import (  # noqa: F401
@@ -39,6 +43,7 @@ from .ops import (  # noqa: F401
 )
 from .sampler import (  # noqa: F401
     DeviceEpochIterator,
+    HostDataLoader,
     MixtureEpochIterator,
     PartialShuffleMixtureSampler,
     PartialShuffleShardSampler,
@@ -53,4 +58,8 @@ from .sampler import (  # noqa: F401
     shard_seed,
     shuffle_buffer,
 )
+from .service import PartialShuffleSpec  # noqa: F401
+from .streaming import StreamSpec  # noqa: F401
 from .utils.metrics import RegenTimer  # noqa: F401
+from .utils.stall_probe import StallProbe  # noqa: F401
+from .utils.watchdog import StallError  # noqa: F401

@@ -2,6 +2,7 @@
 mixture (SPEC.md §8) and the CUDA kernels."""
 
 import numpy as np
+import torch
 
 from .core import (  # noqa: F401
     DEFAULT_ROUNDS,
@@ -55,14 +56,27 @@ def ensure_index_backend(backend: str) -> None:
         require_cuda()
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host numpy array.  A CUDA tensor is read back once: a
+    ``non_blocking`` copy into pinned memory on the current stream, which
+    the host then waits for.  A pageable copy faults in fresh pages and
+    copies synchronously, which held up other threads' copies to the
+    card."""
+    if not t.is_cuda:
+        return t.numpy()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return out.numpy()
+
+
 def epoch_indices_host(backend: str, n, window, seed, epoch, rank, world,
                        **kwargs) -> np.ndarray:
     """One rank's epoch indices as a host numpy array via ``backend``:
     'cuda' runs the kernels and reads back once, 'cpu' the reference."""
     ensure_index_backend(backend)
     if backend == "cuda":
-        return epoch_indices_cuda(
-            n, window, seed, epoch, rank, world, **kwargs
-        ).cpu().numpy()
+        return host_array(epoch_indices_cuda(
+            n, window, seed, epoch, rank, world, **kwargs))
     return epoch_indices_cpu(n, window, seed, epoch, rank, world,
                              **kwargs).numpy()

@@ -1,10 +1,12 @@
-"""The torch ``Sampler`` surface and device-resident epoch iteration."""
+"""The torch ``Sampler`` surface, device-resident epoch iteration and the
+prefetching loader over host-resident data."""
 
 from .device_iterator import (  # noqa: F401
     DeviceEpochIterator,
     MixtureEpochIterator,
     batch_index_window,
 )
+from .host_loader import HostDataLoader  # noqa: F401
 from .mixture import PartialShuffleMixtureSampler  # noqa: F401
 from .shard_mode import (  # noqa: F401
     PartialShuffleShardSampler,

@@ -999,3 +999,171 @@ def test_elastic_regen_fn_on_the_agreed_triple_without_host_sync():
     finally:
         if owned:
             dist.destroy_process_group()
+
+
+# ------------------------------------------ slice 8: HostDataLoader on the card
+from partiallyshuffledistributedsampler_tpu_torch import (  # noqa: E402
+    HostDataLoader,
+    MixtureSpec as PortMixtureSpec,
+    PartialShuffleSpec,
+    StreamSpec,
+)
+
+LN, LWIN, LBATCH = 20_000, 512, 256
+LMIX = ([9_000, 6_000, 5_000], [5, 2, 3], dict(windows=256, block=100))
+LSHARDS = np.random.default_rng(8).integers(50, 150, 200)
+
+#: mode: (loader kwargs, kernels a regen launches, a §6 cascade for it,
+#: kernels its remainder regen launches)
+LOADER_MODES = {
+    "plain": (dict(window=LWIN, world=4, rank=1), ("index_amortized",),
+              [(3, 300)], ("index_positions",)),
+    "blocked": (dict(window=LWIN, world=4, rank=3, partition="blocked"),
+                ("index_general",), [(3, 300)], ("index_positions",)),
+    "mixture": (dict(world=4, rank=2, mixture="mix"), ("mixture_fused",),
+                [(3, 300)], ("mixture_fused",)),
+    "mixture_per_source": (dict(world=4, rank=2, mixture="mix",
+                                per_source=True), ("mixture_fused",),
+                           [(3, 300)], ("mixture_fused",)),
+    "shard": (dict(window=8, world=4, rank=1, shard_sizes=LSHARDS),
+              ("index_amortized", "shard_row_keys", "shard_expand"),
+              [(3, 2)], ("index_positions", "shard_row_keys",
+                         "shard_expand")),
+    "stream_plain": (dict(window=LWIN, world=4, rank=0, streaming=True,
+                          horizon=5_000), ("index_amortized",), [(3, 300)],
+                     ("index_positions",)),
+    "stream_mixture": (dict(world=4, rank=3, mixture="mix", streaming=True,
+                            horizon=5_000), ("mixture_fused",), [(3, 300)],
+                       ("mixture_fused",)),
+}
+
+
+def _loader(index_backend, device, data=None, **kw):
+    kw = dict(kw)
+    total = (int(LSHARDS.sum()) if "shard_sizes" in kw
+             else sum(LMIX[0]) if kw.get("mixture") else LN)
+    if data is None:
+        data = {"x": np.arange(total, dtype=np.int64) * 3,
+                "t": (np.arange(total * 4, dtype=np.uint16)
+                      .reshape(total, 4))}
+    if kw.pop("per_source", False):
+        cut = np.cumsum(LMIX[0])[:-1]
+        data = [dict(zip(data, parts)) for parts in
+                zip(*(np.split(v, cut) for v in data.values()))]
+    if kw.get("mixture") == "mix":
+        kw["mixture"] = PortMixtureSpec(LMIX[0], LMIX[1], **LMIX[2])
+    kw.setdefault("batch", LBATCH)
+    return HostDataLoader(data, index_backend=index_backend, device=device,
+                          **kw)
+
+
+def _as_bits(t):
+    """A batch as comparable host bits (uint16 travels as int16)."""
+    if t.dtype == torch.uint16:
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+@pytest.mark.parametrize("mode", list(LOADER_MODES))
+def test_loader_on_the_card_matches_the_cpu_route(mode):
+    kw, kernels, layers, layer_kernels = LOADER_MODES[mode]
+    card = _loader("cuda", "cuda", boundary_prefetch=False, **kw)
+    host = _loader("cpu", "cpu", boundary_prefetch=False, **kw)
+    for epoch, ly, launched in ((1, None, kernels), (2, None, kernels),
+                                (1, layers, layer_kernels)):
+        ck.reset_launches()
+        got = list(card.epoch(epoch, layers=ly))
+        regen = {k: v for k, v in ck.launches.items() if v}
+        assert regen == {k: 1 for k in launched}  # one regen, no CPU regen
+        want = list(host.epoch(epoch, layers=ly))
+        assert len(got) == len(want) > 0
+        for a, b in zip(got, want):
+            for k in b:
+                assert a[k].is_cuda and a[k].dtype == b[k].dtype
+                np.testing.assert_array_equal(_as_bits(a[k]), _as_bits(b[k]))
+        resumed = list(card.epoch(epoch, start_step=3, layers=ly))
+        for a, b in zip(resumed, want[3:]):
+            np.testing.assert_array_equal(_as_bits(a["x"]), _as_bits(b["x"]))
+    torch.cuda.synchronize()
+
+
+def _spec_pair(mode):
+    """The same spec on 'cuda' and on 'cpu'."""
+    kw = dict(LOADER_MODES[mode][0])
+    kw.pop("rank")
+    out = []
+    for b in ("cuda", "cpu"):
+        if mode == "plain":
+            out.append(PartialShuffleSpec.plain(LN, backend=b, **kw))
+        elif mode == "mixture":
+            m = PortMixtureSpec(LMIX[0], LMIX[1], **LMIX[2])
+            out.append(PartialShuffleSpec.mixture(m, backend=b,
+                                                  world=kw["world"]))
+        elif mode == "shard":
+            out.append(PartialShuffleSpec.shard(
+                LSHARDS, window=8, world=kw["world"], backend=b))
+        else:
+            out.append(StreamSpec.plain_stream(
+                kw["horizon"], window=LWIN, world=kw["world"], backend=b))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["plain", "mixture", "shard",
+                                  "stream_plain"])
+def test_spec_cuda_route_matches_cpu_route(mode):
+    card, host = _spec_pair(mode)
+    layers = LOADER_MODES[mode][2]
+    assert card.fingerprint() == host.fingerprint()
+    for rank in range(card.world):
+        for ly in (None, layers):
+            got = card.rank_indices(3, rank, layers=ly)
+            want = host.rank_indices(3, rank, layers=ly)
+            assert isinstance(got, np.ndarray) and got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+            units = card.rank_unit_sizes(3, rank, layers=ly)
+            if units is not None:
+                np.testing.assert_array_equal(
+                    units, host.rank_unit_sizes(3, rank, layers=ly))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+def test_loader_slow_consumer_sees_no_corrupted_batch(depth):
+    """Every consumer kernel starts behind a busy-wait and then reads its
+    batch: a batch whose memory the allocator handed out again (no
+    ``record_stream``) or that the consumer read before its copy landed
+    (no event wait) shows as a pattern error."""
+    rows = 4096
+    data = np.repeat((np.arange(rows, dtype=np.int64) * 7919 % 65_521)
+                     [:, None], 512, axis=1).astype(np.int32)
+    loader = HostDataLoader(data, window=LWIN, batch=64, world=2, rank=1,
+                            depth=depth, index_backend="cuda",
+                            device="cuda")
+    pattern = torch.from_numpy(data[:, 0]).cuda()
+    idx = torch.from_numpy(loader.epoch_indices(0).astype(np.int64)).cuda()
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for s, b in enumerate(loader.epoch(0)):
+        torch.cuda._sleep(2_000_000)  # ~1 ms: the consumer lags the copies
+        want = pattern[idx[s * 64:(s + 1) * 64]][:, None]
+        bad += (b != want).sum()
+    assert int(bad) == 0
+    assert s + 1 == loader.steps_per_epoch
+
+
+def test_loader_explicit_device_and_own_streams():
+    dev = torch.device("cuda", 0)
+    loader = _loader("cuda", "cuda:0", window=LWIN, world=2)
+    assert loader.device == dev
+    b = next(iter(loader.epoch(0)))
+    assert b["x"].device == dev and b["t"].device == dev
+    list(loader.epoch(1))  # warm: kernels built, tables cached
+    # the regen runs on the loader's stream: a consumer stream busy for
+    # ~1 s does not hold epoch() back
+    torch.cuda._sleep(2_000_000_000)
+    import time
+
+    t0 = time.perf_counter()
+    loader.clear_cache()
+    loader.epoch_indices(5)
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert took < 0.5, took
