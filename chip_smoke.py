@@ -6,8 +6,9 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``csrc/index_kernels.cu``,
-``csrc/mixture_kernels.cu`` and ``csrc/shard_kernels.cu`` (one nvcc each,
-run together), checks the frozen goldens on the card, holds each kernel
+``csrc/mixture_kernels.cu``, ``csrc/shard_kernels.cu`` and
+``csrc/sampling_kernels.cu`` (one nvcc each, run together), checks the
+frozen goldens on the card, holds each kernel
 bit-exact against its plain PyTorch version at the shapes of the main
 paths, drives each main path
 through the entry points a user calls with the kernels' launch counters
@@ -86,6 +87,23 @@ plain version and its bound.  Every failure exits non-zero.
   224x224x3 rows), cut in rows to fit host memory, with a per-row pattern
   checked on every served batch: gather and copy times, the host link,
   batches/s and ``StallProbe``'s stall share behind a synthetic step.
+
+* Slice 9, weighted, prioritized and dedup sampling (phase 17,
+  ``sampling_phase``): ``SamplingSpec`` on ``backend="cuda"`` over the
+  ``weighted_stream`` kernels (``csrc/sampling_kernels.cu``).  W1 is M1's
+  sources weighted 1/3/2 per sample, 1B draws at world 256 and 8; W2 the
+  10B id space weighted 2/5/3 per source, 10B draws at world 256 (uint64
+  ordinals, int64 ids, the 64-bit local draw); W3 the 300-source spec
+  with quotas per 10^10 (the 64-bit accept draw, the table past the
+  staging cap); W1 and W2 after a reshard 128 -> 256; W1 prioritized with
+  weights adopted at epoch 1; an exact and a Bloom dedup over
+  ImageNet-1k's ids, half of them an epoch.  Each regen is one launch (a
+  dedup epoch ``retries + 1``), each stream is held against the kernel
+  alone, the plain version on every lane and the CPU route, and each
+  kernel is timed beside the uniform regen.  The phase alone:
+  ``python3 chip_smoke.py --sampling`` (``--sampling --tile`` also folds
+  the exact dedup's epoch 1, which tiles the id space: minutes of host
+  Python).
 
 ``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
 the ``shard_row_keys`` and ``shard_expand`` times, the elastic remainder
@@ -239,6 +257,41 @@ T_CASES = (("T1 (C4 / GPT-2 small rows)", 4_194_304, (1024,), "uint16", 8,
 #: the kernels the slice-8 main path's regens launch
 SLICE8 = ("index_amortized", "index_positions", "mixture_fused",
           "shard_row_keys", "shard_expand")
+#: slice 9, weighted sampling (phase 17): W1 is M1's sources with the
+#: high-quality corpora upsampled per sample (GPT-3's mix practice); W2 is
+#: config 5's 10B id space (web past 2^31: int64 ids, the 64-bit local
+#: draw); W3 is the 300-source spec of phase 3c with integer quotas per
+#: 10^10 (its total passes 2^31: the 64-bit accept draw)
+W1_WEIGHTS = (1, 3, 2)
+W2_SOURCES = (7_000_000_000, 2_000_000_000, 1_000_000_000)
+W2_WEIGHTS = (2, 5, 3)
+W3_SIZES = tuple(2_000_000 + 17_000 * i for i in range(300))
+#: the prioritized cell's weights, adopted at epoch 1 over W1's
+W_PRIORITY = (1, 6, 2)
+#: the dedup cell: ImageNet-1k's ids as one source, half of them an epoch
+DEDUP_SAMPLES, DEDUP_RETRIES = 640_584, 4
+DEDUP_BLOOM_BITS, DEDUP_BLOOM_HASHES = 1 << 24, 4
+#: the slice-9 kernels
+SLICE9 = ("weighted_stream", "weighted_stream_wide")
+#: weighted_stream per lane, counted from csrc/sampling_kernels.cu as the
+#: other kernels' counts are (mix32's multiplies free, a multiply-high
+#: counted, a 64-bit operation as two): the rank position and its mod by T
+#: (7); the base hash (the low word's xor and mix32, the three-input xor
+#: with the key and the high word's constant hash, mix32: 14); the column
+#: draw (hash 7, mod S 6, the column address 1: 14); the accept draw (hash
+#: 7, mod total 6, the 64-bit threshold compare 2, the alias select and
+#: address 2: 17; with a total past 2^31 two hashes, the 64-bit word and
+#: its 64-bit mod: 32); the local draw (hash 7, the divisor's shifts 2, mod
+#: n_j 6: 15; past 2^31 two hashes, the word, the shifts and a 64-bit mod:
+#: 30); the body test, the offset add and the store (6).  uint64 ordinals
+#: add the high word's hash and a 64-bit mod by T (14).  A lane in a full
+#: window adds the window and offset (6; 12 with a 64-bit local), the
+#: source key eks (8), the combine (2), INNER_KEY_OPS and the rounds.
+W_POS_OPS, W_BASE_OPS, W_COLUMN_OPS = 7, 14, 14
+W_ACCEPT_OPS, W_ACCEPT64_OPS = 17, 32
+W_LOCAL_OPS, W_LOCAL64_OPS = 15, 30
+W_TAIL_OPS, W_WIDE_OPS = 6, 14
+W_SHUFFLE_OPS, W_SHUFFLE64_OPS = 16, 22
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
@@ -960,6 +1013,323 @@ def host_loader_timing(card: str, max_sm_mhz: float) -> dict:
     return {k: v - before[k] for k, v in ck.launches.items()}
 
 
+def w3_weights() -> tuple:
+    """W3's per-source integer quotas: proportions r_s = 1 + s % 13 turned
+    into parts per 10^10, as a user turns float shares into the integer
+    weights the alias table takes."""
+    r = [1 + s % 13 for s in range(len(W3_SIZES))]
+    return tuple(round(1e10 * x / sum(r)) for x in r)
+
+
+def weighted_lane_ops(out, sizes, window: int, *, wide: bool, acc64: bool,
+                      loc64: bool, rounds: int = 24,
+                      depth: int = 0) -> tuple:
+    """``(ops, shuffled lanes)`` of one ``weighted_stream(_wide)`` launch
+    that wrote ``out``, counted from csrc/sampling_kernels.cu as the other
+    kernels' counts are (the mix32 multiplies free; a multiply-high
+    counted; a 64-bit operation as two).  Which lanes ran the in-window
+    bijection is read off the output: a lane whose local id is below its
+    source's full windows."""
+    import torch
+
+    offs = torch.tensor([0, *itertools.accumulate(sizes)][:-1],
+                        dtype=torch.int64, device=out.device)
+    body = torch.tensor([(n // window) * window for n in sizes],
+                        dtype=torch.int64, device=out.device)
+    ids = out.long()
+    j = torch.searchsorted(offs, ids, right=True) - 1
+    shuffled = int(((ids - offs[j]) < body[j]).sum().item())
+    lane = (W_POS_OPS + W_BASE_OPS + W_COLUMN_OPS + W_TAIL_OPS
+            + (W_ACCEPT64_OPS if acc64 else W_ACCEPT_OPS)
+            + (W_LOCAL64_OPS if loc64 else W_LOCAL_OPS)
+            + (W_WIDE_OPS if wide else 0) + depth * STRIDED_LAYER_OPS)
+    per_shuffled = ((W_SHUFFLE64_OPS if loc64 else W_SHUFFLE_OPS)
+                    + INNER_KEY_OPS + rounds * ROUND_OPS)
+    return out.numel() * lane + shuffled * per_shuffled, shuffled
+
+
+def sampling_phase(card: str, max_sm_mhz: float,
+                   tile: bool = False) -> tuple:
+    """Phase 17, the slice-9 main path: ``SamplingSpec`` on
+    ``backend="cuda"`` (weighted, prioritized, dedup) at full width.  Each
+    regen launches ``weighted_stream(_wide)`` once (a dedup epoch fold
+    ``retries + 1`` times); each rank's stream equals the kernel alone,
+    the plain version on the card over every lane, and the CPU route at
+    4,096 sampled lanes (a dedup epoch: the CPU route's whole stream).
+    Times each kernel beside its plain version, its bound and the uniform
+    regen.  The dedup cell folds epoch 0; with ``tile`` the exact seen-set
+    also folds epoch 1, which tiles the id space (its host fold took about
+    two minutes a route on the H100's host: PERF.md §4).  Returns
+    ``(launches, rows, errors)``: the main path's launches,
+    ``{kernel: (ms, plain ms, bound ms, bound by)}`` and each kernel's
+    largest error against its plain version."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import partiallyshuffledistributedsampler_tpu_torch as pt
+    from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        core,
+        cuda_kernel as ck,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.sampling import (
+        alias as A,
+        dedup as D,
+    )
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ops_per_s = INT32_OPS_PER_CLK_PER_SM * sms * max_sm_mhz * 1e6
+    launches9 = {k: 0 for k in ck.launches}
+    errs = {k: 0 for k in SLICE9}
+    rows9 = {}
+    rng = np.random.default_rng(17)
+
+    def gpu_ms(fn, reps):
+        return device_ms(fn, reps, max_sm_mhz)
+
+    def regen(fn, want, label):
+        """``fn()`` (a spec call) launches the kernels of ``want`` as often
+        as it says and nothing else: the main path's launches."""
+        before = dict(ck.launches)
+        out = fn()
+        got = {k: v - before[k] for k, v in ck.launches.items()
+               if v != before[k]}
+        for k, v in got.items():
+            launches9[k] += v
+        check(got == want, f"{label}: the regen launched {got}, not {want}")
+        return out
+
+    def hold(name, got, want, label):
+        equal = got.shape == want.shape and torch.equal(got.long(),
+                                                        want.long())
+        err = (int((got.long() - want.long()).abs().max().item())
+               if got.shape == want.shape and got.numel() else 0)
+        errs[name] = max(errs[name], err)
+        print(f"check {name} {label}: lanes={got.numel()} equal={equal} "
+              f"max_abs_err={err} (tolerance 0: the law is integer-exact)")
+        check(equal, f"{name} {label} differs")
+
+    def plain_chunked(table, sizes, seed, epoch, positions, window, **law):
+        """The plain version over ``positions`` in chunks of 2^24 lanes (its
+        int64 temporaries at 125M lanes would take tens of GB)."""
+        return torch.cat([ck.weighted_stream_ref(
+            table, sizes, seed, epoch, positions=positions[c:c + (1 << 24)],
+            window=window, **law) for c in range(0, positions.numel(),
+                                                 1 << 24)])
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / int_ops_per_s, nbytes / HBM_BYTES_PER_S
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def cell(label, sizes, weights, kind, T, world, ranks, layers=None,
+             timed=False):
+        """One weighted cell: the spec's regen of each rank held against
+        the kernel alone, the plain version on every lane and the CPU
+        route at 4,096 lanes; with ``timed`` the kernel, the plain version
+        and the spec's wall.  Returns (kernel ms, plain ms, bound, its
+        kind) of the last rank when timed."""
+        spec = pt.SamplingSpec.weighted(sizes, weights, weight_kind=kind,
+                                        epoch_samples=T, window=W,
+                                        world=world)
+        table = A.build_alias_table(weights, kind, sizes)
+        wide = core.is_wide(T)
+        name = "weighted_stream_wide" if wide else "weighted_stream"
+        kernel = ck.weighted_stream_wide if wide else ck.weighted_stream
+        acc64 = table.total > core.INT32_MAX
+        loc64 = max(sizes) > core.INT32_MAX
+        tag = (f"{label} T={T:.3g} world={world}"
+               + (f" layers={layers}" if layers else "")
+               + f" (S={len(sizes)}, total {table.total}, "
+               f"{'64' if acc64 else '32'}-bit accept, "
+               f"{'64' if loc64 else '32'}-bit local, "
+               f"{'int64' if A.out_dtype(sizes) == torch.int64 else 'int32'}"
+               f" ids)")
+        res = None
+        for rank in ranks:
+            if layers is None:
+                ns = spec.num_samples()
+                src = dict(num_samples=ns)
+            else:
+                chain, _rem, ns = core.elastic_chain(T, layers, world)
+                src = dict(num_samples=ns, chain=chain)
+            pos = A.rank_ordinals(T, rank, world, ns, "strided",
+                                  src.get("chain"), dev)
+            host = regen(lambda r=rank: spec.rank_indices(1, r,
+                                                          layers=layers),
+                         {name: 1}, f"{tag} rank {rank}")
+            got = torch.from_numpy(host).to(dev)
+            kw = dict(epoch_samples=T, rank=rank, world=world, window=W,
+                      **src)
+            alone = kernel(table, sizes, 0, 1, **kw)
+            hold(name, got, alone, f"{tag} rank={rank}: the spec's regen "
+                 f"against the kernel alone")
+            hold(name, alone, plain_chunked(table, sizes, 0, 1, pos, W),
+                 f"{tag} rank={rank}: every lane against the plain version")
+            lanes = np.sort(rng.choice(ns, min(4096, ns), replace=False))
+            cpu = A.weighted_stream_at_cpu(pos[torch.from_numpy(lanes)
+                                               .to(dev)].cpu(),
+                                           table, sizes, 0, 1, window=W)
+            ok = np.array_equal(host[lanes], cpu.numpy())
+            print(f"check {tag} rank={rank}: {lanes.size} sampled lanes "
+                  f"equal to the 'cpu' route: {ok}")
+            check(ok, f"{tag}: the card's stream differs from the CPU route")
+            if timed and rank == ranks[-1]:
+                ms = gpu_ms(lambda: kernel(table, sizes, 0, 1, **kw),
+                            20 if ns < 10**8 else 3)
+                plain = None
+                if ns < 10**8:
+                    torch.cuda.reset_peak_memory_stats()
+                    plain = gpu_ms(lambda: ck.weighted_stream_ref(
+                        table, sizes, 0, 1, positions=pos, window=W), 2)
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                walls = host_walls(lambda r=rank: spec.rank_indices(
+                    1, r, layers=layers), 10)
+                ops, shuffled = weighted_lane_ops(
+                    alone, sizes, W, wide=wide, acc64=acc64, loc64=loc64,
+                    depth=0 if layers is None else len(layers))
+                nbytes = (alone.numel() * alone.element_size()
+                          + len(sizes) * ck.COL_WORDS * 8)
+                b_ms, b_by = bound(ops, nbytes)
+                plain_s = ("not measured (tens of GB of temporaries)"
+                           if plain is None
+                           else f"{plain:.4f} ms ({peak:.1f} GiB peak)")
+                print(f"time {name} {tag} rank={rank}: kernel {ms:.4f} ms "
+                      f"({ms * 1e9 / ns:.2f} ps a lane over {ns} lanes, "
+                      f"{shuffled} through the bijection), plain {plain_s}, "
+                      f"bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G int32 "
+                      f"ops, {nbytes / 1e6:.1f} MB), {b_ms / ms:.1%} of "
+                      f"bound; spec.rank_indices wall (kernel + readback) "
+                      f"median {float(np.median(walls)):.4f} ms min "
+                      f"{min(walls):.4f} ms | {card}")
+                res = (ms, plain, b_ms, b_by)
+            del got, alone, pos
+        torch.cuda.empty_cache()
+        return spec, res
+
+    # ------------------------------------------------ W1, W2, W3 (+ elastic)
+    ns128, _ = core.shard_sizes(N_C4, 128, False)
+    w1, res = cell("W1", M1_SOURCES, W1_WEIGHTS, "per_sample", N_C4, 256,
+                   (0, 255), timed=True)
+    rows9["weighted_stream"] = res
+    uniform = gpu_ms(lambda: ck.index_amortized(N_C4, W, 0, 1, 255, 256), 20)
+    print(f"uniform regen at the same T: index_amortized n=1e9 W=8192 "
+          f"world=256 {uniform:.4f} ms; weighted (W1) {res[0]:.4f} ms, "
+          f"{res[0] / uniform:.2f}x (the JAX package's sampling-smoke "
+          f"comparison; reported, not gated) | {card}")
+    cell("W1", M1_SOURCES, W1_WEIGHTS, "per_sample", N_C4, 8, (3,))
+    cell("W1 elastic 128 -> 256 half-way", M1_SOURCES, W1_WEIGHTS,
+         "per_sample", N_C4, 256, (255,), layers=[(128, ns128 // 2)],
+         timed=True)
+    _w2, res = cell("W2", W2_SOURCES, W2_WEIGHTS, "per_source", N_LLAMA,
+                    256, (0, 255), timed=True)
+    rows9["weighted_stream_wide"] = res
+    ns128w, _ = core.shard_sizes(N_LLAMA, 128, False)
+    cell("W2 elastic 128 -> 256 half-way", W2_SOURCES, W2_WEIGHTS,
+         "per_source", N_LLAMA, 256, (255,), layers=[(128, ns128w // 2)],
+         timed=True)
+    w3w = w3_weights()
+    t3 = A.build_alias_table(w3w, "per_source", W3_SIZES)
+    print(f"W3: 300 sources, {sum(W3_SIZES)} ids, weights per 10^10 (GCD "
+          f"reduced total {t3.total}, past 2^31: "
+          f"{t3.total > core.INT32_MAX}; columns past the staging cap of "
+          f"{ck.STAGE_COLS}: {len(W3_SIZES) > ck.STAGE_COLS})")
+    check(t3.total > core.INT32_MAX, "W3's total does not run the 64-bit "
+          "accept draw")
+    cell("W3", W3_SIZES, w3w, "per_source", N_C4, 256, (0, 255),
+         timed=True)
+
+    # ----------------------------------------------------------- prioritized
+    base = pt.SamplingSpec.prioritized(M1_SOURCES, W1_WEIGHTS,
+                                       weight_kind="per_sample",
+                                       epoch_samples=N_C4, window=W,
+                                       world=256)
+    pri = base.with_stream_weights({1: W_PRIORITY})
+    check(pri.fingerprint() == base.fingerprint(),
+          "adopting weights moved the fingerprint")
+    e0 = regen(lambda: pri.rank_indices(0, 7), {"weighted_stream": 1},
+               "prioritized epoch 0")
+    ok0 = np.array_equal(e0, w1.rank_indices(0, 7))
+    e1 = regen(lambda: pri.rank_indices(1, 7), {"weighted_stream": 1},
+               "prioritized epoch 1")
+    adopted = A.build_alias_table(W_PRIORITY, "per_sample", M1_SOURCES)
+    lanes = np.sort(rng.choice(e1.size, 4096, replace=False))
+    cpu = A.weighted_stream_at_cpu(7 + 256 * lanes, adopted, M1_SOURCES, 0,
+                                   1, window=W)
+    ok1 = np.array_equal(e1[lanes], cpu.numpy())
+    moved = not np.array_equal(e1, w1.rank_indices(1, 7))
+    print(f"prioritized W1, weights {W_PRIORITY} adopted at epoch 1: epoch "
+          f"0 equals the base table's stream: {ok0}; epoch 1 equals "
+          f"weighted_stream_at_cpu under the adopted table at 4096 lanes: "
+          f"{ok1}, and differs from the base table's: {moved}")
+    check(ok0 and ok1 and moved, "the prioritized stream is wrong")
+
+    # ------------------------------------------------------------------ dedup
+    for kind, epochs in (("exact", (0, 1) if tile else (0,)),
+                         ("bloom", (0,))):
+        cfg = dict(kind=kind, retries=DEDUP_RETRIES, **(
+            dict(bits=DEDUP_BLOOM_BITS, hashes=DEDUP_BLOOM_HASHES)
+            if kind == "bloom" else {}))
+        card_spec, host_spec = (pt.SamplingSpec.deduped(
+            (N_IMAGENET,), epoch_samples=DEDUP_SAMPLES, window=W, world=8,
+            dedup=cfg, backend=b) for b in ("cuda", "cpu"))
+        table = A.build_alias_table((1,), "per_source", (N_IMAGENET,))
+        served = []
+        for epoch in epochs:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                regen(lambda e=epoch: card_spec.rank_indices(e, 0),
+                      {"weighted_stream": DEDUP_RETRIES + 1},
+                      f"dedup {kind} epoch {epoch}")
+                fold_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                host_spec.rank_indices(epoch, 0)
+                cpu_s = time.perf_counter() - t0
+            got = np.concatenate([regen(
+                lambda e=epoch, r=r: card_spec.rank_indices(e, r), {},
+                f"dedup {kind} epoch {epoch} rank {r}") for r in range(8)])
+            want = np.concatenate([host_spec.rank_indices(epoch, r)
+                                   for r in range(8)])
+            kw = dict(window=W, retries=DEDUP_RETRIES)
+            cand_walls = host_walls(lambda e=epoch: D.fold_candidates(
+                table, (N_IMAGENET,), 0, e, DEDUP_SAMPLES, **kw), 3)
+            cand_ms = gpu_ms(lambda e=epoch: [ck.weighted_stream(
+                table, (N_IMAGENET,), 0, e, epoch_samples=DEDUP_SAMPLES,
+                rank=0, world=1, num_samples=DEDUP_SAMPLES, window=W,
+                retry=r) for r in range(DEDUP_RETRIES + 1)], 5)
+            cand = float(np.median(cand_walls))
+            ok = np.array_equal(got, want)
+            served.append(got)
+            msgs = sorted({str(w.message) for w in caught})
+            print(f"dedup {kind} ImageNet {N_IMAGENET} ids, T={DEDUP_SAMPLES}"
+                  f" world=8 epoch {epoch}: the 'cuda' stream equals the "
+                  f"'cpu' stream over the whole epoch: {ok}; distinct ids "
+                  f"{np.unique(got).size}; candidates ({DEDUP_RETRIES + 1} "
+                  f"launches, {(DEDUP_RETRIES + 1) * DEDUP_SAMPLES} lanes) "
+                  f"device {cand_ms:.4f} ms, with the readback wall median "
+                  f"{cand:.4f} ms; host fold {fold_s * 1e3 - cand:.1f} ms "
+                  f"(regen wall {fold_s * 1e3:.1f} ms); the 'cpu' route "
+                  f"{cpu_s * 1e3:.1f} ms; warnings: {msgs} | {card}")
+            check(ok, f"dedup {kind} epoch {epoch}: cuda differs from cpu")
+        if kind == "exact" and tile:
+            both = np.concatenate(served)
+            distinct = np.unique(both).size
+            print(f"dedup exact epochs 0 and 1: {both.size} draws over "
+                  f"{N_IMAGENET} ids, {distinct} distinct (the last draw "
+                  f"finds every id served)")
+            check(np.unique(served[0]).size == served[0].size
+                  and distinct == N_IMAGENET,
+                  "dedup exact: the two epochs do not tile the id space")
+        else:
+            check(np.unique(served[0]).size == served[0].size,
+                  f"dedup {kind}: epoch 0 repeats an id")
+        del card_spec, host_spec
+    return launches9, rows9, errs
+
+
 def main() -> None:
     import torch
 
@@ -970,6 +1340,14 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--regen"]:
         regen_report()
+        return
+    if sys.argv[1:2] == ["--sampling"]:
+        card = nvidia_smi("name,power.limit")
+        print(card)
+        res = sampling_phase(card,
+                             float(nvidia_smi("clocks.max.sm").split()[0]),
+                             tile=sys.argv[2:3] == ["--tile"])
+        print(json.dumps(dict(zip(("launches", "rows", "errors"), res))))
         return
     try:
         import partiallyshuffledistributedsampler_tpu_torch as pt
@@ -2090,6 +2468,16 @@ def main() -> None:
         check(launches8[name] > 0,
               f"kernel {name} was not launched on the slice-8 main path")
 
+    # ------------------------------------------- slice-9 main path
+    # 17: SamplingSpec on the card (launches counted per regen inside;
+    # launches9 sums them)
+    launches9, rows9, errs9 = sampling_phase(card, max_sm_mhz)
+    print(f"kernels (slice-9 main path): {json.dumps(launches9)}")
+    for name in SLICE9:
+        check(launches9[name] > 0,
+              f"kernel {name} was not launched on the slice-9 main path")
+        stats[name]["err"] = max(stats[name]["err"], errs9[name])
+
     # ---------------------------------------------------------------- 6
     floor_ms = launch_floor_ms(max_sm_mhz)
     print(f"launch floor (empty kernel, back to back): {floor_ms:.4f} ms | "
@@ -2568,7 +2956,12 @@ def main() -> None:
         "index_positions_wide":
             "partiallyshuffledistributedsampler_tpu/ops/xla.py:270"
             " + partiallyshuffledistributedsampler_tpu/ops/xla.py:347",
+        "weighted_stream":
+            "partiallyshuffledistributedsampler_tpu/sampling/alias.py:189",
+        "weighted_stream_wide":
+            "partiallyshuffledistributedsampler_tpu/sampling/alias.py:189",
     }
+    rows.update(rows9)
     kernels = []
     for name in replaces:
         ms, plain, b_ms, b_by = rows[name]
@@ -2577,12 +2970,13 @@ def main() -> None:
             "source": "partiallyshuffledistributedsampler_tpu_torch/csrc/"
                       + ("mixture_kernels.cu" if name in SLICE3
                          else "shard_kernels.cu" if name in SLICE4
+                         else "sampling_kernels.cu" if name in SLICE9
                          else "index_kernels.cu"),
             "replaces": replaces[name],
             # the count over the main paths' runs
             "launches": sum(run.get(name, 0) for run in (
                 launches, launches2, launches3, launches3b, launches4,
-                launches8)),
+                launches8, launches9)),
             "max_abs_err": stats[name]["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

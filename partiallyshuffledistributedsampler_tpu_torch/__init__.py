@@ -14,8 +14,9 @@ shard-index mode (SPEC.md §7: ``PartialShuffleShardSampler``,
 ``expand_shard_indices_cuda``) run on the card through their own kernels.
 Data that lives in host memory reaches the card through
 ``HostDataLoader`` (pinned gathers, asynchronous copies), whose stream is
-a ``PartialShuffleSpec`` (or, moving-horizon, a ``StreamSpec``) with the
-JAX package's wire form.
+a ``PartialShuffleSpec`` (or, moving-horizon, a ``StreamSpec``; weighted,
+prioritized or dedup, a ``SamplingSpec``) with the JAX package's wire
+form.
 """
 
 from .ops import (  # noqa: F401
@@ -58,6 +59,7 @@ from .sampler import (  # noqa: F401
     shard_seed,
     shuffle_buffer,
 )
+from .sampling import SamplingSpec  # noqa: F401
 from .service import PartialShuffleSpec  # noqa: F401
 from .streaming import StreamSpec  # noqa: F401
 from .utils.metrics import RegenTimer  # noqa: F401

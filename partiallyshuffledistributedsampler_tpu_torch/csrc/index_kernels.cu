@@ -104,6 +104,7 @@
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() (0 on success).
 
+#include "chain.cuh"
 #include "law.cuh"
 
 namespace {
@@ -283,45 +284,15 @@ __global__ void __launch_bounds__(THREADS)
 // ------------------------------------------------------------ positions
 // The remainder law (SPEC.md §6): lane t of the new world's rank takes the
 // ordinal q = rank_position(t) mod R over the innermost remainder, maps it
-// out through the reshard layers, innermost first, each followed by a mod
-// (the next layer's remaining count, and n after the outermost), and then
-// runs the windowed permutation: ops/core.py rank_positions,
-// compose_remainder_chain and stream_indices_at_generic, one lane a thread,
-// with no position written to or read from device memory.  A layer maps
-//   strided: q -> q + consumed*world
-//   blocked: q -> (q / gap)*ns + consumed + q % gap,  gap = ns - consumed
-// in Pos arithmetic: uint32 positions wrap at 2^32 as the reference's
-// uint32 ones do (the host refuses narrow constants of 2^32 or more, as the
-// reference's uint32 casts do), uint64 ones do not wrap.  Every / and % is a
-// multiply-high by the divisor's magic number (law.cuh magic_div), in 32
-// or 64 bits by Pos; the host computes the divisors and their magic numbers
-// once per chain (ops/cuda_kernel.py chain_table).
-//
-// Where the chain lives: a table of LAYER_WORDS uint64 words a layer in
-// device memory, built once per chain and cached by the caller, so a regen
-// copies nothing to the card.  A chain has no depth limit: a block stages
-// its first STAGE_LAYERS layers (4 KB) in shared memory beside the
-// schedules, and a deeper layer is read through the read-only cache, the
-// same address for every lane of a warp.  One layer costs a lane 7
-// (strided) to 14 (blocked) operations against the ~650 of its two
-// bijections, so the chain hardly moves the bound; launch arguments would
-// have capped the depth.
+// out through the reshard layers (chain.cuh compose_chain, the table
+// staged by stage_layers) and then runs the windowed permutation:
+// ops/core.py rank_positions, compose_remainder_chain and
+// stream_indices_at_generic, one lane a thread, with no position written to
+// or read from device memory.
 //
 // The buffer source (random access) reads one int64 position a lane: its
 // low 32 bits (uint32 positions) or all 64 as uint64, as the reference
 // casts them, then mod n.  Lanes are counted in uint64 in both sources.
-constexpr int LAYER_WORDS = 8;
-enum LayerWord : int {
-  L_ADD,         // consumed*world (strided) or consumed (blocked)
-  L_NS,          // the layer's num_samples (blocked)
-  L_GAP,         // ns - consumed (blocked)
-  L_GAP_MULT,    // its magic multiplier
-  L_GAP_SHIFT,   // s1 | s2 << 8
-  L_MOD,         // the modulus after the layer
-  L_MOD_MULT,
-  L_MOD_SHIFT,
-};
-constexpr uint32_t STAGE_LAYERS = 64;
 
 // The lanes' position source.
 struct PosSource {
@@ -331,24 +302,6 @@ struct PosSource {
   uint64_t first, first_mult, first_shift;  // the modulus of the first
                                             // position: R or n
 };
-
-// x / d for a divisor given by its magic multiplier and packed shifts.
-template <typename Pos>
-__device__ __forceinline__ Pos quotient(Pos x, uint64_t mult,
-                                        uint64_t shift) {
-  const uint32_t s1 = (uint32_t)shift & 0xFFu, s2 = (uint32_t)(shift >> 8);
-  if constexpr (sizeof(Pos) == 4) {
-    return magic_div((uint32_t)x, Magic32{(uint32_t)mult, s1, s2});
-  } else {
-    return magic_div((uint64_t)x, Magic64{mult, s1, s2});
-  }
-}
-
-template <typename Pos>
-__device__ __forceinline__ Pos remainder(Pos x, uint64_t d, uint64_t mult,
-                                         uint64_t shift) {
-  return x - quotient<Pos>(x, mult, shift) * (Pos)d;
-}
 
 // kChain: positions from the reshard chain, else from S.positions.
 template <typename Pos, typename Out, bool kDyn, bool kChain>
@@ -361,12 +314,7 @@ __global__ void __launch_bounds__(THREADS)
   const Keys k = make_keys(P, seeds);
   const Schedules s = kDyn ? load_schedules(sched_dyn, P.rounds, P, k)
                            : load_schedules(sched_fixed, STATIC_ROUNDS, P, k);
-  const uint32_t nstaged = S.depth < STAGE_LAYERS ? S.depth : STAGE_LAYERS;
-  if (kChain) {
-    const unsigned long long *src = (const unsigned long long *)S.layers;
-    for (uint32_t i = threadIdx.x; i < nstaged * LAYER_WORDS; i += blockDim.x)
-      staged[i] = __ldg(src + i);
-  }
+  if (kChain) stage_layers(staged, S.layers, S.depth);
   __syncthreads();
   const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
   for (uint64_t t = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -376,25 +324,7 @@ __global__ void __launch_bounds__(THREADS)
       q = P.strided ? (Pos)P.rank + (Pos)P.world * (Pos)t
                     : (Pos)P.rank * (Pos)P.num_samples + (Pos)t;
       q = remainder<Pos>(q, S.first, S.first_mult, S.first_shift);
-      for (uint32_t i = 0; i < S.depth; ++i) {
-        const uint64_t *L =
-            i < STAGE_LAYERS ? staged + i * LAYER_WORDS : nullptr;
-        auto word = [&](int f) -> uint64_t {
-          return L != nullptr
-                     ? L[f]
-                     : (uint64_t)__ldg((const unsigned long long *)S.layers +
-                                       (uint64_t)i * LAYER_WORDS + f);
-        };
-        if (P.strided) {
-          q = q + (Pos)word(L_ADD);
-        } else {
-          const Pos qd = quotient<Pos>(q, word(L_GAP_MULT), word(L_GAP_SHIFT));
-          q = qd * (Pos)word(L_NS) + (Pos)word(L_ADD) +
-              (q - qd * (Pos)word(L_GAP));
-        }
-        q = remainder<Pos>(q, word(L_MOD), word(L_MOD_MULT),
-                           word(L_MOD_SHIFT));
-      }
+      q = compose_chain<Pos>(q, staged, S.layers, S.depth, P.strided);
     } else {
       q = remainder<Pos>((Pos)(uint64_t)S.positions[t], S.first,
                          S.first_mult, S.first_shift);

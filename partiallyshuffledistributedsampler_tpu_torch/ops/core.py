@@ -316,20 +316,22 @@ _M63 = (1 << 63) - 1
 def u64_divmod(x: torch.Tensor, d):
     """``(x // d, x % d)`` of the uint64 values whose int64 bits are ``x``
     (a negative ``x`` stands for ``x + 2^64``), for divisors ``1 <= d <=
-    2^62`` (an int or an int64 tensor broadcastable against ``x``).  The
-    quotient comes as int64 bits, modulo 2^64.
+    2^63 - 1`` (an int or an int64 tensor broadcastable against ``x``).
+    The quotient comes as int64 bits, modulo 2^64.
 
     ``x & (2^63 - 1)`` is ``x`` or ``x + 2^63``; with ``2^63 = c*d + e``,
     ``e`` in ``[1, d]``, the high half adds ``c`` to the quotient and ``e``
-    to the remainder, whose sum stays below ``2d <= 2^63``."""
+    to the remainder ``r < d``.  The sum ``r + e`` may pass 2^63 when
+    ``d > 2^62``, so the carry is taken as ``r >= d - e`` and the
+    remainder as ``r - (d - e)`` or ``r + e``, each below ``d``."""
     a = x & _M63
     q, r = a // d, a % d
     c, e = _M63 // d, _M63 % d + 1
-    r2 = r + e
-    carry = r2 >= d
+    gap = d - e
+    carry = r >= gap
     neg = x < 0
     return (torch.where(neg, q + c + carry.to(torch.int64), q),
-            torch.where(neg, torch.where(carry, r2 - d, r2), r))
+            torch.where(neg, torch.where(carry, r - gap, r + e), r))
 
 
 def rank_positions(n: int, rank, world: int, num_samples: int,

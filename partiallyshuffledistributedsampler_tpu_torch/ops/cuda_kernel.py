@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/``.
 
-Ten kernels, each with a wrapper, a plain PyTorch version and a launch
+Twelve kernels, each with a wrapper, a plain PyTorch version and a launch
 counter:
 
 ====================  ===================================  ==========================
@@ -35,6 +35,11 @@ shard_expand          ``shard_expand_ref``                 ``sampler/shard_mode.
                       (``ops/shard.py``)                   ``_class_expand_jit``,
                                                            ``_bucket_expand_jit``,
                                                            ``_bucket_scatter_jit``
+weighted_stream       ``weighted_stream_ref`` (the rank's  ``sampling/alias.py``
+weighted_stream_wide  ordinals, the remainder chain or     ``weighted_stream_at_``
+                      given ordinals, then                 ``generic`` (under
+                      ``sampling.alias.weighted_``         ``weighted_epoch_``
+                      ``stream_at_generic``)               ``indices_jax``)
 ====================  ===================================  ==========================
 
 (paths of the JAX package ``partiallyshuffledistributedsampler_tpu``).  The
@@ -60,12 +65,18 @@ CPU tests use; for a CUDA device it launches its kernel and raises on
 anything the kernel does not take — there is no fallback.  ``launches``
 counts kernel launches per wrapper, and nothing else.
 
+The two ``weighted_stream`` kernels run the alias law of weighted,
+prioritized and dedup sampling: the narrow one on uint32 ordinals (an
+epoch below 2^31 draws), the wide one on uint64 ordinals and on given
+ordinal buffers; both write int32 ids, or int64 when the sources total
+2^31 or more.
+
 The kernels are built with ``nvcc`` at first use into ``csrc/build/`` of
 this package, one shared library per source (``index_kernels.cu``,
-``mixture_kernels.cu``, ``shard_kernels.cu``), all compiled at once and
-each named by a hash of
-every file its build reads (the source and ``law.cuh``), so an edited file
-rebuilds.  They are bound through ctypes over a plain C ABI.  Nothing is
+``mixture_kernels.cu``, ``shard_kernels.cu``, ``sampling_kernels.cu``), all
+compiled at once and each named by a hash of every file its build may read
+(the source and the headers ``law.cuh`` and ``chain.cuh``), so an edited
+file rebuilds.  They are bound through ctypes over a plain C ABI.  Nothing is
 built or imported from CUDA when this module is imported.
 """
 
@@ -85,11 +96,12 @@ from . import core, fastdiv, mixture, shard
 _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-#: one shared library per source; every build also reads ``_HEADER``
+#: one shared library per source; every build may also read ``_HEADERS``
 _SOURCES = {"index": os.path.join(_CSRC, "index_kernels.cu"),
             "mixture": os.path.join(_CSRC, "mixture_kernels.cu"),
-            "shard": os.path.join(_CSRC, "shard_kernels.cu")}
-_HEADER = os.path.join(_CSRC, "law.cuh")
+            "shard": os.path.join(_CSRC, "shard_kernels.cu"),
+            "sampling": os.path.join(_CSRC, "sampling_kernels.cu")}
+_HEADERS = (os.path.join(_CSRC, "law.cuh"), os.path.join(_CSRC, "chain.cuh"))
 _BUILD_DIR = os.path.join(_CSRC, "build")
 #: nvcc flags: Hopper's sm_90a, optimised, a shared library with a C ABI;
 #: -Xptxas -v records registers and spills in ``build_log``
@@ -112,7 +124,8 @@ launches = {"index_general": 0, "index_amortized": 0,
             "index_general_wide": 0, "index_amortized_wide": 0,
             "index_positions": 0, "index_positions_wide": 0,
             "mixture_source_keys": 0, "mixture_fused": 0,
-            "shard_row_keys": 0, "shard_expand": 0}
+            "shard_row_keys": 0, "shard_expand": 0,
+            "weighted_stream": 0, "weighted_stream_wide": 0}
 
 _libs: dict = {}
 #: the compiler's output of the builds this process made ("" if prebuilt)
@@ -153,11 +166,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str = "index") -> str:
-    """Where the build of library ``name`` ('index', 'mixture' or 'shard') of the
-    current sources lives: named by a hash of every file its build reads
-    and of the flags."""
+    """Where the build of library ``name`` ('index', 'mixture', 'shard' or
+    'sampling') of the current sources lives: named by a hash of every file
+    its build may read and of the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in (_SOURCES[name], _HEADER):
+    for path in (_SOURCES[name], *_HEADERS):
         with open(path, "rb") as f:
             digest.update(f.read())
     return os.path.join(
@@ -219,6 +232,13 @@ def _load(name: str) -> ctypes.CDLL:
             lib.psds_index_amortized_wide.argtypes = amortized
             lib.psds_index_positions.argtypes = positions
             lib.psds_index_positions_wide.argtypes = positions
+        elif name == "sampling":
+            fns = (lib.psds_weighted_stream, lib.psds_weighted_stream_wide)
+            for fn in fns:
+                fn.argtypes = [ptr, ptr, u64, ptr, u32, i32, u64, u64, u32,
+                               u32, u32, i32, ptr, u32, u64, u64, u32, u32,
+                               u32, u32, u64, u32, u32, u32, u32, u32, i32,
+                               i32, i32, i32, i32, ptr]
         elif name == "shard":
             fns = (lib.psds_shard_row_keys, lib.psds_shard_expand)
             lib.psds_shard_row_keys.argtypes = [ptr, ptr, ptr, u64, ptr, u32,
@@ -1083,3 +1103,213 @@ def shard_expand(rowtab, sids: torch.Tensor, tables,
         int(tables.out_dtype == torch.int64), stream,
     ))
     return out
+
+
+# --------------------------------------------------------------- sampling
+#: uint64 words of one alias column in the device table
+#: (``csrc/sampling_kernels.cu`` COL_WORDS): the acceptance threshold, the
+#: alias column | mix32(j ^ C_SRC) << 32, the source's size n_j, its magic
+#: multiplier and packed shifts (32- or 64-bit, by the widest source), the
+#: source's first id, its full-window length (n_j // W) * W, and a pad word
+COL_WORDS = 8
+#: columns a block of ``weighted_stream`` stages in shared memory at most
+#: (``csrc/sampling_kernels.cu`` STAGE_COLS); past it the lanes read the
+#: table through the read-only cache
+STAGE_COLS = 256
+#: cached device alias tables: (table.key(), sizes, window, device) -> tensor
+_weighted_tables: dict = {}
+_WEIGHTED_TABLES_CAP = 16
+
+
+def weighted_plan(table, sizes: tuple, window: int) -> np.ndarray:
+    """The device alias table of ``table`` over ``sizes`` for the window
+    ``window`` as uint64 words, ``COL_WORDS`` a column (pure)."""
+    from ..sampling import alias
+
+    sizes = tuple(int(n) for n in sizes)
+    bits = 64 if max(sizes) > core.INT32_MAX else 32
+    offs, _total = alias.source_offsets(sizes)
+    words = []
+    for j, n in enumerate(sizes):
+        _n, mult, shift = _divisor(n, bits)
+        src = core.mix32(j ^ alias._C_SRC)
+        words += [table.probs[j], table.alias[j] | (src << 32), n, mult,
+                  shift, offs[j], (n // window) * window, 0]
+    return np.array(words, dtype=np.uint64)
+
+
+def weighted_table(table, sizes: tuple, window: int, device) -> torch.Tensor:
+    """``weighted_plan`` as an int64 tensor (the uint64 bits) on ``device``,
+    built once per ``(table.key(), sizes, window, device)`` and cached, so
+    a regen of a known table copies nothing to the card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    sizes = tuple(int(n) for n in sizes)
+    key = (table.key(), sizes, int(window), str(device))
+    tab = _weighted_tables.get(key)
+    if tab is None:
+        words = weighted_plan(table, sizes, int(window))
+        tab = torch.from_numpy(words.view(np.int64)).to(device)
+        if len(_weighted_tables) >= _WEIGHTED_TABLES_CAP:
+            _weighted_tables.pop(next(iter(_weighted_tables)))
+        _weighted_tables[key] = tab
+    return tab
+
+
+def weighted_stream_ref(table, source_sizes, seed, epoch, *,
+                        epoch_samples=None, rank=None, world=None,
+                        num_samples=None, partition: str = "strided",
+                        chain=None, positions=None, window: int,
+                        shuffle: bool = True,
+                        rounds: int = core.DEFAULT_ROUNDS, retry: int = 0,
+                        device=None) -> torch.Tensor:
+    """The plain version of ``weighted_stream(_wide)`` on ``device`` (the
+    ordinals' device when they are given): the given ordinals, or the
+    rank's ordinals (``sampling.alias.rank_ordinals``, through ``chain``
+    when given); then ``sampling.alias.weighted_stream_at_generic``."""
+    from ..sampling import alias
+
+    if positions is None:
+        positions = alias.rank_ordinals(epoch_samples, rank, world,
+                                        num_samples, partition, chain, device)
+    return alias.weighted_stream_at_generic(
+        positions, table, source_sizes, seed, epoch, window=window,
+        shuffle=shuffle, rounds=rounds, retry=retry)
+
+
+def _check_weighted_source(epoch_samples, rank, world, num_samples, chain,
+                           positions, wide: bool) -> None:
+    """Ordinals come from ``positions`` (the wide kernel only) or from
+    ``(epoch_samples, rank, world, num_samples[, chain])``."""
+    if positions is not None:
+        if any(v is not None for v in (epoch_samples, rank, world,
+                                       num_samples, chain)):
+            raise ValueError("pass positions, or epoch_samples, rank, world "
+                             "and num_samples, not both")
+        if not (isinstance(positions, torch.Tensor)
+                and positions.dtype == torch.int64):
+            raise ValueError("positions must be an int64 tensor")
+        return
+    if any(v is None for v in (epoch_samples, rank, world, num_samples)):
+        raise ValueError("pass positions, or epoch_samples, rank, world and "
+                         "num_samples")
+    _check_width(int(epoch_samples), wide)
+    if not 1 <= world <= core.INT32_MAX:
+        raise ValueError(f"world must be in [1, 2^31), got {world}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank must be in [0, {world}), got {rank}")
+    if num_samples < 0:
+        raise ValueError(f"num_samples must be >= 0, got {num_samples}")
+
+
+def _weighted(wide: bool, table, source_sizes, seed, epoch, *,
+              epoch_samples, rank, world, num_samples, partition: str,
+              chain, positions, window: int, shuffle: bool, rounds: int,
+              retry: int, device) -> torch.Tensor:
+    from ..sampling import alias
+
+    name = "weighted_stream_wide" if wide else "weighted_stream"
+    sizes = tuple(int(n) for n in source_sizes)
+    if len(table.probs) != len(sizes):
+        raise ValueError(
+            f"table has {len(table.probs)} columns for {len(sizes)} sources")
+    if positions is None:
+        rank, world, num_samples = (int(v) if v is not None else None
+                                    for v in (rank, world, num_samples))
+    _check_weighted_source(epoch_samples, rank, world, num_samples, chain,
+                           positions, wide)
+    if shuffle:
+        alias.check_window(sizes, window)
+        if window > core.INT32_MAX:
+            raise ValueError("window must be < 2^31")
+    if chain is not None:
+        chain = _as_chain(chain)
+        first = chain_plan(int(epoch_samples), chain, partition, wide)[1]
+    elif partition not in ("strided", "blocked"):
+        raise ValueError(
+            f"partition must be 'strided' or 'blocked', got {partition!r}")
+    dev = positions.device if positions is not None else torch.device(device)
+    law = dict(window=window, shuffle=shuffle, rounds=rounds, retry=retry)
+    if device_kind(dev) == "cpu":
+        return weighted_stream_ref(
+            table, sizes, seed, epoch, epoch_samples=epoch_samples,
+            rank=rank, world=world, num_samples=num_samples,
+            partition=partition, chain=chain, positions=positions,
+            device=dev, **law)
+    _check_rounds(rounds)
+    if positions is not None:
+        p = positions.contiguous()
+        lanes, first = p.numel(), (0, 0, 0)
+        rank, world, layers, depth = 0, 1, None, 0
+    else:
+        lanes, p = num_samples, None
+        if chain is None:
+            first = tuple(_divisor(int(epoch_samples), 64 if wide else 32))
+            layers, depth = None, 0
+        else:
+            layers, depth = chain_table(int(epoch_samples), chain, partition,
+                                        dev), len(chain)
+    out = torch.empty(lanes, dtype=alias.out_dtype(sizes), device=dev)
+    if lanes == 0:
+        return out
+    W = int(window) if shuffle else 1
+    tab = weighted_table(table, sizes, W, out.device)
+    acc64 = table.total > core.INT32_MAX
+    loc64 = max(sizes) > core.INT32_MAX
+    _t, t_mult, t_shift = _divisor(table.total, 64 if acc64 else 32)
+    _s, s_mult, s_shift = _divisor(len(sizes), 32)
+    _w, w_mult, w_shift = _divisor(W, 64 if loc64 else 32)
+    lo, hi, ep = core.seed_triple(seed, epoch)
+    lib = _load("sampling")
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    fn = lib.psds_weighted_stream_wide if wide else lib.psds_weighted_stream
+    launches[name] += 1
+    _check(name, fn(
+        out.data_ptr(), None if p is None else p.data_ptr(), lanes,
+        tab.data_ptr(), len(sizes), int(len(sizes) <= STAGE_COLS), *first,
+        world, rank, int(partition == "strided"),
+        None if layers is None else layers.data_ptr(), depth, table.total,
+        t_mult, t_shift, s_mult, s_shift, W, w_mult, w_shift, lo, hi, ep,
+        int(retry) & core._M32, int(bool(shuffle)), int(acc64), int(loc64),
+        int(out.dtype == torch.int64), rounds, stream,
+    ))
+    return out
+
+
+def weighted_stream(table, source_sizes, seed, epoch, *, epoch_samples=None,
+                    rank=None, world=None, num_samples=None,
+                    partition: str = "strided", chain=None, window: int,
+                    shuffle: bool = True, rounds: int = core.DEFAULT_ROUNDS,
+                    retry: int = 0, device="cuda") -> torch.Tensor:
+    """The alias law (``sampling/alias.py``) on uint32 ordinals, an epoch
+    of ``epoch_samples`` < 2^31 draws: the rank's ``num_samples`` ordinals
+    (``rank``, ``world``, ``partition``), or with ``chain`` (the
+    outermost-first reshard layers of ``core.elastic_chain``) its remainder
+    ordinals composed in the kernel, on ``device``.  ``retry`` folds a
+    dedup retry round into the key.  int32 ids, or int64 when the sources
+    total 2^31 or more."""
+    return _weighted(False, table, source_sizes, seed, epoch,
+                     epoch_samples=epoch_samples, rank=rank, world=world,
+                     num_samples=num_samples, partition=partition,
+                     chain=chain, positions=None, window=window,
+                     shuffle=shuffle, rounds=rounds, retry=retry,
+                     device=device)
+
+
+def weighted_stream_wide(table, source_sizes, seed, epoch, *,
+                         epoch_samples=None, rank=None, world=None,
+                         num_samples=None, partition: str = "strided",
+                         chain=None, positions=None, window: int,
+                         shuffle: bool = True,
+                         rounds: int = core.DEFAULT_ROUNDS, retry: int = 0,
+                         device="cuda") -> torch.Tensor:
+    """``weighted_stream`` on uint64 ordinals: an epoch of 2^31 draws or
+    more, or the given int64 ``positions`` (1-D, on the launch device) read
+    as uint64 bits and taken as they are."""
+    return _weighted(True, table, source_sizes, seed, epoch,
+                     epoch_samples=epoch_samples, rank=rank, world=world,
+                     num_samples=num_samples, partition=partition,
+                     chain=chain, positions=positions, window=window,
+                     shuffle=shuffle, rounds=rounds, retry=retry,
+                     device=device)

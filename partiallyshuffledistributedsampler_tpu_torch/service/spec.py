@@ -34,7 +34,10 @@ plain or shard, ``layers``      ``core.elastic_chain`` +
                                 ``elastic_indices_cuda`` (``index_positions``)
 ==============================  =============================================
 
-On 'cpu' the same streams come from the port's ``_cpu`` twins.
+On 'cpu' the same streams come from the port's ``_cpu`` twins.  The
+weighted, prioritized and dedup wire modes are
+``sampling.SamplingSpec``'s (``weighted_stream``); ``from_wire`` hands
+them to it.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ _MODES = ("plain", "mixture", "shard")
 #: the sampler kwargs a stream threads through to the law
 _LAW_KWARGS = ("shuffle", "drop_last", "order_windows", "partition",
                "rounds")
-#: wire modes of the JAX package that this package does not serve yet
+#: the non-uniform sampling wire modes (``sampling.SamplingSpec``)
 _SAMPLING_MODES = ("weighted", "prioritized", "dedup")
 
 
@@ -337,11 +340,11 @@ class PartialShuffleSpec:
             from ..streaming.spec import StreamSpec
 
             return StreamSpec.from_wire(d, backend=backend)
-        if d.get("mode") in _SAMPLING_MODES:
-            raise NotImplementedError(
-                f"wire mode {d['mode']!r} (non-uniform sampling) is not "
-                "ported to this package yet (ROADMAP.md, Queue A item 4)"
-            )
+        if d.get("mode") in _SAMPLING_MODES and cls is PartialShuffleSpec:
+            # the non-uniform sampling modes likewise
+            from ..sampling.spec import SamplingSpec
+
+            return SamplingSpec.from_wire(d, backend=backend)
         d = dict(d)
         kwargs = d.pop("kwargs", {})
         mk = d.pop("mixture_key", None)

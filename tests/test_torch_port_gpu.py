@@ -1167,3 +1167,149 @@ def test_loader_explicit_device_and_own_streams():
     took = time.perf_counter() - t0
     torch.cuda.synchronize()
     assert took < 0.5, took
+
+
+# ---------------------------------------------------------------- sampling
+_SRNG = np.random.default_rng(17)
+#: (id, sizes, weights, weight_kind, window, law kwargs): each branch of the
+#: alias law (a few columns, 300 columns past the staging cap, a total past
+#: 2^31, a source past 2^31 with int64 ids, sources smaller than the window,
+#: one-hot and uniform tables, unshuffled, 70 rounds, retry rounds) with
+#: negative and 64-bit seeds
+WEIGHTED_CASES = [
+    ("s3", (900_000, 600_000, 500_000), (5, 1, 2), "per_source", 8192, {}),
+    ("s300", tuple(int(x) for x in _SRNG.integers(1, 300_000, 300)),
+     tuple(int(x) for x in _SRNG.integers(0, 1000, 300)), "per_sample",
+     512, {}),
+    ("total64", (5_000_000, 6_000_000), (2**40 + 1, 3**20), "per_source",
+     8192, {}),
+    ("source64", (2**31 + 7, 1000, 2**32 + 5), (1, 2, 3), "per_source",
+     8192, {}),
+    ("small-sources", (100, 50, 7000), (3, 3, 1), "per_source", 4096, {}),
+    ("one-hot", (3000, 5000, 7000), (0, 4, 0), "per_source", 64, {}),
+    ("uniform", (3000, 5000, 7000), (2, 2, 2), "per_source", 64, {}),
+    ("unshuffled", (900_000, 600_000), (1, 9), "per_source", 64,
+     dict(shuffle=False)),
+    ("rounds70", (900_000, 600_000), (1, 9), "per_source", 1000,
+     dict(rounds=70)),
+    ("retry3", (900_000, 600_000), (1, 9), "per_source", 1000,
+     dict(retry=3)),
+]
+
+
+def _weighted_case(cid):
+    from partiallyshuffledistributedsampler_tpu_torch.sampling import alias
+
+    _cid, sizes, w, kind, window, law = next(
+        c for c in WEIGHTED_CASES if c[0] == cid)
+    return alias.build_alias_table(w, kind, sizes), sizes, window, law
+
+
+@pytest.mark.parametrize("cid", [c[0] for c in WEIGHTED_CASES])
+def test_weighted_kernels_match_plain_version(cid):
+    table, sizes, window, law = _weighted_case(cid)
+    ck.reset_launches()
+    runs = 0
+    for T, world, partition, drop_last in (
+            (1_000_003, 3, "strided", False), (1_000_003, 4, "blocked", True),
+            (2**31 + 10, 2**16, "strided", False)):
+        wide = core.is_wide(T)
+        kernel = ck.weighted_stream_wide if wide else ck.weighted_stream
+        ns, _ = core.shard_sizes(T, world, drop_last)
+        for rank, seed in ((0, 0), (world - 1, -5), (world // 2, 2**40 + 3)):
+            kw = dict(epoch_samples=T, rank=rank, world=world,
+                      num_samples=ns, partition=partition, window=window,
+                      **law)
+            got = kernel(table, sizes, seed, 7, **kw)
+            want = ck.weighted_stream_ref(table, sizes, seed, 7,
+                                          device="cuda", **kw)
+            assert got.is_cuda and got.dtype == want.dtype
+            assert torch.equal(got, want), (T, world, rank)
+            runs += 1
+        # the elastic remainder through the chain table
+        layers = [(world * 2, ns // 4)]
+        chain, remaining, ns2 = core.elastic_chain(T, layers, world,
+                                                   drop_last)
+        kw = dict(epoch_samples=T, rank=world - 1, world=world,
+                  num_samples=ns2, partition=partition, chain=chain,
+                  window=window, **law)
+        assert torch.equal(kernel(table, sizes, 3, 1, **kw),
+                           ck.weighted_stream_ref(table, sizes, 3, 1,
+                                                  device="cuda", **kw))
+        runs += 1
+    # given ordinals (uint64 bits, negative ones included) on the wide form
+    pos = torch.from_numpy(_SRNG.integers(-2**63, 2**63 - 1, 100_000,
+                                          dtype=np.int64)).cuda()
+    got = ck.weighted_stream_wide(table, sizes, 9, 2, positions=pos,
+                                  window=window, **law)
+    assert torch.equal(got, ck.weighted_stream_ref(
+        table, sizes, 9, 2, positions=pos, window=window, **law))
+    runs += 1
+    assert sum(ck.launches.values()) == runs
+
+
+def test_weighted_narrow_and_wide_agree_below_2_32():
+    table, sizes, window, _law = _weighted_case("s3")
+    ns, _ = core.shard_sizes(1_000_003, 3, False)
+    narrow = ck.weighted_stream(table, sizes, 5, 1, epoch_samples=1_000_003,
+                                rank=2, world=3, num_samples=ns,
+                                window=window)
+    pos = core.rank_positions(1_000_003, 2, 3, ns, "strided", False,
+                              device="cuda")
+    wide = ck.weighted_stream_wide(table, sizes, 5, 1, positions=pos,
+                                   window=window)
+    assert torch.equal(narrow, wide)
+
+
+def _sampling_pair(mode, world=3):
+    from partiallyshuffledistributedsampler_tpu_torch import SamplingSpec
+
+    sizes = (900_000, 600_000, 500_000)
+    out = []
+    for b in ("cuda", "cpu"):
+        if mode == "weighted":
+            s = SamplingSpec.weighted(sizes, (5, 1, 2), epoch_samples=300_001,
+                                      window=8192, world=world, backend=b)
+        elif mode == "prioritized":
+            s = SamplingSpec.prioritized(
+                sizes, (1, 1, 1), epoch_samples=300_001, window=8192,
+                world=world, backend=b).with_stream_weights({1: (1, 6, 2)})
+        else:
+            cfg = dict(kind=mode.split("-")[1], retries=3)
+            if cfg["kind"] == "bloom":
+                cfg.update(bits=1 << 20, hashes=4)
+            # 40,000 ids: epochs 0..2 draw 36,000 and never saturate
+            s = SamplingSpec.deduped(
+                (25_000, 15_000), epoch_samples=12_000, window=512,
+                world=world, backend=b, dedup=cfg)
+        out.append(s)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["weighted", "prioritized", "dedup-exact",
+                                  "dedup-bloom"])
+def test_sampling_spec_cuda_matches_cpu(mode):
+    card, host = _sampling_pair(mode)
+    assert card.fingerprint() == host.fingerprint()
+    for epoch in (0, 1, 2):
+        for rank in range(card.world):
+            for layers in (None, [(2, 40_000 if "dedup" not in mode
+                                   else 3000)]):
+                ck.reset_launches()
+                got = card.rank_indices(epoch, rank, layers=layers)
+                n_launch = sum(ck.launches.values())
+                want = host.rank_indices(epoch, rank, layers=layers)
+                assert isinstance(got, np.ndarray)
+                assert got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want)
+                if "dedup" not in mode:
+                    # one launch a regen, never the plain version
+                    assert n_launch == 1
+                    assert ck.launches["weighted_stream"] == 1
+    if "dedup" in mode:
+        # a fresh spec folds epoch 0 with retries + 1 launches
+        fresh, _ = _sampling_pair(mode)
+        ck.reset_launches()
+        fresh.rank_indices(0, 0)
+        assert ck.launches["weighted_stream"] == 4
+        assert sum(ck.launches.values()) == 4

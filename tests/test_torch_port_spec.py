@@ -27,6 +27,9 @@ from partiallyshuffledistributedsampler_tpu_torch import (
     PartialShuffleSpec,
     StreamSpec,
 )
+from partiallyshuffledistributedsampler_tpu_torch import (
+    SamplingSpec as PortSamplingSpec,
+)
 from partiallyshuffledistributedsampler_tpu_torch.streaming import (
     WEIGHTS_RETAIN,
 )
@@ -253,6 +256,9 @@ def test_port_specific_refusals():
 
 @pytest.mark.parametrize("mode", ["weighted", "prioritized", "dedup"])
 def test_sampling_wire_is_refused_by_name(mode):
+    """The three sampling wire modes of the JAX package, once refused, now
+    come back from the generic ``from_wire`` as the port's ``SamplingSpec``
+    with the same fingerprint and streams."""
     sizes = (900, 600, 500)
     if mode == "weighted":
         s = SamplingSpec.weighted(sizes, (5, 1, 2), epoch_samples=512,
@@ -265,8 +271,12 @@ def test_sampling_wire_is_refused_by_name(mode):
                                  world=2)
     wire = s.to_wire()
     assert wire["mode"] == mode
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        PartialShuffleSpec.from_wire(wire, backend="cpu")
+    port = PartialShuffleSpec.from_wire(wire, backend="cpu")
+    assert type(port) is PortSamplingSpec
+    assert port.fingerprint() == s.fingerprint()
+    for rank in (0, 1):
+        np.testing.assert_array_equal(port.rank_indices(1, rank),
+                                      s.rank_indices(1, rank))
 
 
 def test_mixture_builder_takes_a_key():
