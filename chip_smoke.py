@@ -105,6 +105,28 @@ plain version and its bound.  Every failure exits non-zero.
   the exact dedup's epoch 1, which tiles the id space: minutes of host
   Python).
 
+* Slice 10, the consumer layer (phase 18, ``training_phase``): the
+  port's GPT-2-small (config 3) and ViT-L/16 (config 4) at full width.
+  Their forward on the card in f32 (TF32 off) against the same module on
+  the CPU route; the slice's main path, the bf16 trainer at batch 8 x
+  1,024 tokens over a device-resident token table of 2^20 rows (cut in
+  rows only): ``make_run_runner`` (3 epochs x 8 steps) and
+  ``make_mixture_run_runner`` over M1's 70/20/10 shape cut to 2^20 rows
+  (2 epochs x 8 steps) under ``set_sync_debug_mode("error")``, one
+  ``index_amortized`` or ``mixture_fused`` launch an epoch, each epoch's
+  regen held against the plain law, finite losses and a falling
+  GPT-2-small loss; the run runner then timed (``time_run``: device ms
+  and host ms a step by CUDA events around whole runs, model TFLOP/s,
+  the regen beside the step; a ``torch.profiler`` trace of a run for the
+  launch gap, the device idle before a step, what the epoch boundary
+  adds, the busy share and the kernels that take the time); T1's loader
+  (2^20 host rows of 1,025 uint16 tokens) behind the GPT-2-small step,
+  ``StallProbe`` at depth 1 and 2; ``demo_vit_run`` over 4,096 f32
+  images, its regens held the same way, then its loop timed the same
+  way.  The phase alone: ``python3 chip_smoke.py --train``.
+  Phase 6 also times the masked per-source mixture (plain torch) at M1
+  with the kernels off and for a spec with a source past 2^31.
+
 ``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
 the ``shard_row_keys`` and ``shard_expand`` times, the elastic remainder
 regens, the launches per regen and a digest of each output, through
@@ -292,6 +314,35 @@ W_ACCEPT_OPS, W_ACCEPT64_OPS = 17, 32
 W_LOCAL_OPS, W_LOCAL64_OPS = 15, 30
 W_TAIL_OPS, W_WIDE_OPS = 6, 14
 W_SHUFFLE_OPS, W_SHUFFLE64_OPS = 16, 22
+#: slice 10, the consumer layer (phase 18, ``training_phase``): BASELINE's
+#: two consumers at full width, GPT-2-small (config 3: the C4 pretrain)
+#: and ViT-L/16 (config 4), depth uncut
+GPT2_SMALL = dict(vocab_size=50_257, seq_len=1024, d_model=768, n_layers=12,
+                  n_heads=12, d_ff=3072)
+VIT_L16 = dict(image_size=224, patch_size=16, channels=3, num_classes=1000,
+               d_model=1024, n_layers=24, n_heads=16, d_ff=4096)
+#: max |logits| between the card and the CPU route, f32 with TF32 off, 2
+#: rows (2 x 1,024 tokens; 2 images): summation order alone differs
+FWD_TOL = 1e-3
+#: the trainer's data: a device-resident token table of 2^20 rows x 1,025
+#: int32 (4.3 GB; C4 has ~365M documents, the cut is in rows only), the
+#: sampler at window 8,192 and world 1, batch 8 x 1,024 tokens
+TRAIN_ROWS, TRAIN_BATCH, TRAIN_STEPS, TRAIN_EPOCHS = 1 << 20, 8, 8, 3
+#: M1's 70/20/10 three-source shape scaled to the table's 2^20 rows
+MIX_TRAIN_SIZES = (734_003, 209_715, 104_858)
+MIX_TRAIN_EPOCHS = 2
+#: ViT-L/16's data: 4,096 f32 images (2.5 GB), window 1,024, batch 8
+VIT_IMAGES, VIT_WINDOW, VIT_STEPS, VIT_EPOCHS = 4096, 1024, 4, 2
+#: T1 behind the GPT-2-small step: 2^20 host rows of 1,025 uint16 tokens
+#: (2.1 GB; T1 of phase 16 holds 4,194,304 rows of 1,024), world 8, the
+#: trainer's batch of 8; the steps timed at each depth
+T1_TRAIN_ROWS, T1_TRAIN_STEPS = 1 << 20, 40
+#: the kernels the slice-10 main path launches
+SLICE10 = ("index_amortized", "mixture_fused")
+#: a mixture with a source past 2^31 (10B-class web, code, books), which
+#: takes only the masked per-source route, timed beside M1's
+MASKED_BIG_SOURCES = (3_000_000_000, 1_000_000_000, 500_000_000)
+MASKED_BIG_WEIGHTS = (60, 25, 15)
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
@@ -1330,6 +1381,494 @@ def sampling_phase(card: str, max_sm_mhz: float,
     return launches9, rows9, errs
 
 
+def model_flops(cfg, batch: int, vit: bool) -> tuple:
+    """``(matmul, attention)`` FLOPs of one train step (forward and
+    backward, 3 x the forward): 6 x the matmul parameters x the tokens that
+    pass through them, and 12 x B x T^2 x d per layer for the two attention
+    products over every query and key (the plain attention computes the
+    masked half too)."""
+    d, L, f = cfg.d_model, cfg.n_layers, cfg.d_ff
+    block = L * (4 * d * d + 2 * d * f)
+    if vit:
+        T = cfg.num_patches + 1
+        patch = cfg.channels * cfg.patch_size ** 2 * d
+        matmul = 6 * batch * (block * T + patch * (T - 1)
+                              + d * cfg.num_classes)
+    else:
+        T = cfg.seq_len
+        matmul = 6 * batch * T * (block + d * cfg.vocab_size)
+    return matmul, 12 * batch * T * T * d * L
+
+
+def trace_steps(prof, n_steps: int, steps: int):
+    """Step metrics from a ``torch.profiler`` trace of a run of ``n_steps``
+    steps, ``steps`` an epoch.  A step's launches end where its
+    ``Optimizer.step`` range ends on the host; each device event is tied
+    to its launch by the CUPTI correlation id, and a step's device span
+    runs from the first to the last event it launched.  Returns the
+    medians of the launch gap (host time between the ends of successive
+    steps' launches), of the device time a step (end to end) and of the
+    device idle before a step, within epochs; the device time an epoch
+    boundary adds to its step; and the device busy share of the run.  A
+    value the trace cannot give is None (not measured)."""
+    import numpy as np
+
+    out = dict(gap_ms=None, trace_step_ms=None, idle_ms=None,
+               boundary_ms=None, busy=None)
+    evs = list(prof.events())
+    on_card = [e for e in evs if str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)]
+    host_ends = sorted(e.time_range.end for e in evs
+                       if not str(e.device_type).endswith("CUDA")
+                       and e.name.startswith("Optimizer.step#"))
+    if len(host_ends) != n_steps:
+        return out
+    gaps = np.diff(host_ends) / 1e3
+    within = [k for k in range(1, n_steps) if k % steps]
+    out["gap_ms"] = float(np.median(gaps[[k - 1 for k in within]]))
+    if not on_card:
+        return out
+    first = min(e.time_range.start for e in on_card)
+    last = max(e.time_range.end for e in on_card)
+    out["busy"] = sum(e.time_range.end - e.time_range.start
+                      for e in on_card) / (last - first)
+    # a launch is a CUDA API call (cudaLaunchKernel, cuLaunchKernel,
+    # cudaMemcpyAsync, ...) carrying the correlation id of the device
+    # event it made; the ops' own ids are of another space
+    launched = {e.id: e.time_range.start for e in evs
+                if not str(e.device_type).endswith("CUDA")
+                and e.name.startswith("cu")}
+    bounds = np.searchsorted(host_ends, [launched.get(e.id, np.inf)
+                                         for e in on_card], side="right")
+    spans = [[np.inf, -np.inf] for _ in range(n_steps)]
+    for e, k in zip(on_card, bounds):
+        if k < n_steps:
+            spans[k][0] = min(spans[k][0], e.time_range.start)
+            spans[k][1] = max(spans[k][1], e.time_range.end)
+    if any(not np.isfinite(a) for a, _ in spans):
+        return out  # a step with no device event tied to it
+    end = np.array([b for _, b in spans])
+    start = np.array([a for a, _ in spans])
+    dev = (end[1:] - end[:-1]) / 1e3
+    idle = (start[1:] - end[:-1]) / 1e3
+    out["trace_step_ms"] = float(np.median(dev[[k - 1 for k in within]]))
+    out["idle_ms"] = float(np.median(idle[[k - 1 for k in within]]))
+    edges = [k - 1 for k in range(steps, n_steps, steps)]
+    if edges:
+        out["boundary_ms"] = float(np.median(dev[edges])) - out[
+            "trace_step_ms"]
+    return out
+
+
+def time_run(label, cfg, vit, fn, epochs: int, steps: int, regen_ms,
+             card) -> dict:
+    """Times ``fn(first_epoch)``, a real run of ``epochs`` x ``steps``
+    steps, after one run that warms it: CUDA events around a whole run
+    (the device ms a step: its span over the steps, regens and epoch
+    boundaries included) and the host clock (the host ms a step to queue
+    it), then a ``torch.profiler`` trace of a third run for the launch
+    gap, the device idle, the epoch boundary (``trace_steps``) and the
+    kernels that take the time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = epochs * steps
+    fn(0)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    fn(epochs)
+    b.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    step_ms = a.elapsed_time(b) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(2 * epochs)
+        torch.cuda.synchronize()
+    mm, att = model_flops(cfg, TRAIN_BATCH, vit)
+    out = dict(step_ms=step_ms, host_ms=host_ms,
+               tflops=(mm + att) / (step_ms / 1e3) / 1e12, regen_ms=regen_ms,
+               **trace_steps(prof, n, steps))
+    ms = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
+    print(f"{label} train step (batch {TRAIN_BATCH}, {cfg.dtype}), a run of "
+          f"{epochs} epochs x {steps} steps: device {step_ms:.4f} ms a step "
+          f"(CUDA events over the run, regens and boundaries included); "
+          f"host {host_ms:.4f} ms a step to queue the run; "
+          f"{out['tflops']:.1f} model TFLOP/s ({(mm + att) / 1e12:.3f} "
+          f"TFLOP a step: 6*N*tokens {mm / 1e12:.3f} + attention "
+          f"{att / 1e12:.3f}); regen {regen_ms:.4f} ms beside the step | "
+          f"{card}")
+    print(f"{label} trace of a run (profiler on), medians within epochs: "
+          f"launch gap (host time between the ends of successive steps' "
+          f"launches) {ms(out['gap_ms'])} against {ms(out['trace_step_ms'])}"
+          f" a step on the device; device idle before a step "
+          f"{ms(out['idle_ms'])}; the epoch boundary adds "
+          f"{ms(out['boundary_ms'])} on the device; device busy "
+          + ("not measured" if out["busy"] is None
+             else f"{out['busy']:.1%} of the run") + f" | {card}")
+    rows = []
+    for evt in prof.key_averages():
+        if (not str(evt.device_type).endswith("CUDA")
+                or getattr(evt, "is_user_annotation", False)
+                or evt.key.startswith("Optimizer.")):
+            # host ops (their kernels are events of their own) and ranges
+            # annotated on the device timeline, which overlap kernels
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us, evt.key, evt.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    for us, name, count in rows[:10]:
+        print(f"  {us / n / 1e3:9.3f} ms a step {us / total:6.1%} "
+              f"x{count // n:<5d} {name[:90]}")
+    return out
+
+
+def forward_parity(label, model, inputs, fwd, card) -> float:
+    """Max |logits| between the card and the CPU route for the same
+    module (f32, TF32 off) on ``inputs``; fails past ``FWD_TOL``."""
+    import torch
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            want = fwd(model, inputs)
+            host_s = time.perf_counter() - t0
+            model.to("cuda")
+            got = fwd(model, inputs.cuda())
+            check(got.is_cuda and got.dtype == torch.float32,
+                  f"{label}: the card's logits are not f32 on the card")
+            err = float((got.cpu() - want).abs().max())
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    n = sum(p.numel() for p in model.parameters())
+    print(f"{label} forward parity (f32, TF32 off, {tuple(inputs.shape)}, "
+          f"{n / 1e6:.1f}M parameters): max |logits card - CPU route| "
+          f"{err:.3e} (tolerance {FWD_TOL:.0e}; CPU route {host_s:.1f} s, "
+          f"max |logit| {float(want.abs().max()):.3f}) | {card}")
+    check(err <= FWD_TOL, f"{label}: the card's forward differs from the "
+          f"CPU route by {err:.3e} > {FWD_TOL:.0e}")
+    return err
+
+
+def t1_rows(rows: int):
+    """T1's token rows for the trainer: row r holds r % 50,000 and
+    r // 50,000 in its first two tokens and (r + j) % 50,257 at token j;
+    every value is a token of GPT-2's vocabulary."""
+    import numpy as np
+
+    data = np.empty((rows, GPT2_SMALL["seq_len"] + 1), dtype=np.uint16)
+    j = np.arange(data.shape[1], dtype=np.int64)
+    for c in range(0, rows, 1 << 16):
+        r = np.arange(c, min(rows, c + (1 << 16)), dtype=np.int64)
+        data[c:c + r.size] = (r[:, None] + j[None, :]) % GPT2_SMALL[
+            "vocab_size"]
+        data[c:c + r.size, 0] = r % 50_000
+        data[c:c + r.size, 1] = r // 50_000
+    return data
+
+
+def u16_tokens(b):
+    """A served uint16 batch as int64 tokens, combined from its bytes on
+    the card (uint16 tensors take few operations)."""
+    import torch
+
+    b8 = b.contiguous().view(torch.uint8).to(torch.int64)
+    return b8[..., 0::2] + 256 * b8[..., 1::2]
+
+
+def t1_errors(b, ids):
+    """Tokens of a served batch that break ``t1_rows``'s pattern for the
+    row ids ``ids`` (both on the card)."""
+    import torch
+
+    v = u16_tokens(b)
+    rid = v[:, 0] + 50_000 * v[:, 1]
+    j = torch.arange(v.shape[1], device=v.device)
+    want = (rid[:, None] + j[None, :]) % GPT2_SMALL["vocab_size"]
+    return (rid != ids).sum() + (v[:, 2:] != want[:, 2:]).sum()
+
+
+def training_phase(card: str, max_sm_mhz: float) -> dict:
+    """Phase 18: the consumer layer on the card.  GPT-2-small and ViT-L/16
+    at full width: the forward against the CPU route (f32);
+    ``make_run_runner`` and ``make_mixture_run_runner`` (bf16) under
+    ``set_sync_debug_mode("error")`` with their launches counted and their
+    regens held against the plain law, then the run runner timed
+    (``time_run``); T1's loader behind the GPT-2-small step;
+    ``demo_vit_run`` the same way, then its loop timed.  Returns the
+    launches of the main-path runs and each kernel's max abs error."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import partiallyshuffledistributedsampler_tpu_torch as pt
+    from partiallyshuffledistributedsampler_tpu_torch import parallel
+    from partiallyshuffledistributedsampler_tpu_torch.models import (
+        GPTConfig,
+        ViTConfig,
+        create_state,
+        demo_vit_run,
+        forward,
+        init_params,
+        init_vit_params,
+        make_mixture_run_runner,
+        make_run_runner,
+        make_train_step,
+        make_vit_train_step,
+        vit_forward,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.models.train import (
+        make_optimizer,
+        triple_at_epoch,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.models.vit import (
+        synthetic_images,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        core,
+        cuda_kernel as ck,
+        mixture as M,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.utils.stall_probe import (
+        StallProbe,
+    )
+
+    dev = torch.device("cuda")
+    gpu_ms = lambda fn, reps: device_ms(fn, reps, max_sm_mhz)  # noqa: E731
+    launches = {k: 0 for k in ck.launches}
+    errs = {k: 0 for k in SLICE10}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    def hold(name, got, want, label):
+        equal = got.shape == want.shape and torch.equal(got.long(),
+                                                        want.long())
+        err = (int((got.long() - want.long()).abs().max().item())
+               if got.shape == want.shape and got.numel() else 0)
+        errs[name] = max(errs[name], err)
+        print(f"check {name} {label}: lanes={got.numel()} equal={equal} "
+              f"max_abs_err={err} (tolerance 0: the law is integer-exact)")
+        check(equal, f"{name} {label} differs from its plain version")
+
+    # ------------------------------------------- forward parity, f32
+    gen = torch.Generator().manual_seed(0)
+    g32 = GPTConfig(dtype=torch.float32, **GPT2_SMALL)
+    tok = torch.randint(0, g32.vocab_size, (2, g32.seq_len), generator=gen)
+    forward_parity("GPT-2-small", init_params(g32, gen), tok,
+                   lambda m, x: forward(g32, m, x), card)
+    v32 = ViTConfig(dtype=torch.float32, **VIT_L16)
+    img = torch.randn(2, v32.image_size, v32.image_size, v32.channels,
+                      generator=gen)
+    forward_parity("ViT-L/16", init_vit_params(v32, gen), img,
+                   lambda m, x: vit_forward(v32, m, x), card)
+    torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    mesh = parallel.data_mesh()
+    cfg = GPTConfig(**GPT2_SMALL)  # bf16 activations, the default
+    tgen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_ROWS, cfg.seq_len + 1),
+                           generator=tgen, device=dev, dtype=torch.int32)
+    print(f"GPT-2-small trainer: token table {tuple(tokens.shape)} int32 on "
+          f"the card ({tokens.numel() * 4 / 1e9:.2f} GB, rows cut from C4's "
+          f"~365M documents), window {W}, world 1, batch {TRAIN_BATCH} x "
+          f"{cfg.seq_len} tokens, {cfg.dtype} activations")
+    triple = parallel.make_seed_triple(0, 0, mesh=mesh)
+
+    # ---------------- the slice-10 main path: the run runners, no sync
+    model, opt = create_state(cfg, mesh, 0)
+    run = make_run_runner(cfg, opt, mesh, TRAIN_BATCH, TRAIN_STEPS,
+                          TRAIN_EPOCHS, TRAIN_ROWS, W)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        losses = run(model, tokens, triple, 0)
+        host_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = dict(ck.launches)
+    add(counts)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    means = losses.float().mean(dim=1).cpu().numpy()
+    print(f"GPT-2-small make_run_runner: {TRAIN_EPOCHS} epochs x "
+          f"{TRAIN_STEPS} steps under set_sync_debug_mode('error') with no "
+          f"error, queued in {host_s:.2f} s, done in {wall_s:.2f} s; "
+          f"launches {json.dumps({k: v for k, v in counts.items() if v})}; "
+          f"epoch mean loss {[round(float(m), 4) for m in means]} | {card}")
+    check(counts["index_amortized"] == TRAIN_EPOCHS
+          and sum(counts.values()) == TRAIN_EPOCHS,
+          "the run runner did not regenerate with one index_amortized "
+          "launch an epoch")
+    check(tuple(losses.shape) == (TRAIN_EPOCHS, TRAIN_STEPS)
+          and losses.is_cuda and bool(torch.isfinite(losses).all()),
+          "the run runner's losses are not finite [epochs, steps] on the "
+          "card")
+    check(means[-1] < means[0], "the GPT-2-small loss did not fall")
+    # the runner's regen, made with its arguments, at every epoch it ran
+    regen_fn, ns = parallel.make_regen_fn(TRAIN_ROWS, W, mesh=mesh)
+    for e in range(TRAIN_EPOCHS):
+        hold("index_amortized", regen_fn(triple_at_epoch(triple, e)),
+             ck.epoch_indices_amortized_ref(TRAIN_ROWS, W, 0, e, 0, 1, ns,
+                                            device=dev),
+             f"make_run_runner's regen n={TRAIN_ROWS} W={W} world=1 "
+             f"epoch={e}")
+    regen_ms = gpu_ms(lambda: regen_fn(triple), 50)
+    gpt = time_run("GPT-2-small", cfg, False,
+                   lambda e0: run(model, tokens, triple, e0), TRAIN_EPOCHS,
+                   TRAIN_STEPS, regen_ms, card)
+
+    spec = pt.MixtureSpec(MIX_TRAIN_SIZES, [70, 20, 10], windows=W)
+    mix = make_mixture_run_runner(cfg, opt, mesh, TRAIN_BATCH, TRAIN_STEPS,
+                                  MIX_TRAIN_EPOCHS, spec)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mlosses = mix(model, tokens, triple, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = dict(ck.launches)
+    add(counts)
+    torch.cuda.synchronize()
+    mregen, mns = parallel.make_mixture_regen_fn(spec, mesh=mesh)
+    _t, _ns, total = M.mixture_epoch_sizes(spec, None, 1, False)
+    for e in range(MIX_TRAIN_EPOCHS):
+        hold("mixture_fused", mregen(triple_at_epoch(triple, e)),
+             ck.mixture_fused_ref(None, spec, 0, e, rank=0, world=1,
+                                  num_samples=mns, device=dev,
+                                  wide_pos=total + spec.block
+                                  > core.INT32_MAX),
+             f"make_mixture_run_runner's regen {MIX_TRAIN_SIZES} at "
+             f"70/20/10 W={W} world=1 epoch={e}")
+    mregen_ms = gpu_ms(lambda: mregen(triple), 50)
+    print(f"GPT-2-small make_mixture_run_runner over {MIX_TRAIN_SIZES} at "
+          f"70/20/10: {MIX_TRAIN_EPOCHS} epochs x {TRAIN_STEPS} steps under "
+          f"set_sync_debug_mode('error') with no error; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}; losses "
+          f"finite: {bool(torch.isfinite(mlosses).all())}; mixture regen "
+          f"{mregen_ms:.4f} ms beside the step's {gpt['step_ms']:.4f} ms "
+          f"| {card}")
+    check(counts["mixture_fused"] == MIX_TRAIN_EPOCHS
+          and sum(counts.values()) == MIX_TRAIN_EPOCHS,
+          "the mixture run runner did not regenerate with one mixture_fused "
+          "launch an epoch")
+    check(bool(torch.isfinite(mlosses).all()),
+          "the mixture run runner's losses are not finite")
+
+    # --------------------- T1's loader behind the GPT-2-small step
+    rows = t1_rows(T1_TRAIN_ROWS)
+    step_rows = make_train_step(cfg, opt, mesh, TRAIN_BATCH)
+    in_order = torch.arange(TRAIN_BATCH, device=dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    stall = {}
+    for depth in (1, 2):
+        ld = pt.HostDataLoader(rows, window=W, batch=TRAIN_BATCH, rank=3,
+                               world=8, depth=depth, boundary_prefetch=False)
+        ids = torch.from_numpy(ld.epoch_indices(depth).astype(np.int64)).to(
+            dev)
+        it = ld.epoch(depth)
+        probe = StallProbe(it)
+        gen_b = iter(probe)
+        step_ms = []
+        for s, b in enumerate(gen_b):
+            bad += t1_errors(b, ids[s * TRAIN_BATCH:(s + 1) * TRAIN_BATCH])
+            t0 = time.perf_counter()
+            step_rows(model, u16_tokens(b), in_order, 0)
+            torch.cuda.current_stream().synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if s + 1 == T1_TRAIN_STEPS:
+                break
+        gen_b.close()
+        it.close()
+        rep = probe.report()
+        stall[depth] = rep["stall_pct"]
+        print(f"T1 behind the GPT-2-small step: StallProbe depth {depth}: "
+              f"stall {rep['stall_pct']:.3f} % over {rep['batches']} steps "
+              f"(wait {rep['wait_s'] * 1e3:.1f} ms, compute "
+              f"{rep['compute_s'] * 1e3:.1f} ms; the step to a synchronised "
+              f"stream {float(np.median(step_ms)):.2f} ms median); "
+              f"{T1_TRAIN_ROWS} host rows of {rows.shape[1]} uint16, world "
+              f"8, batch {TRAIN_BATCH} | {card}")
+    errors = int(bad)
+    check(errors == 0, f"T1 behind the trainer: {errors} tokens break the "
+          "row pattern")
+    del rows, model, opt, run, mix, step_rows, tokens, losses, mlosses
+    torch.cuda.empty_cache()
+
+    vcfg = ViTConfig(**VIT_L16)
+    # ----------------------------- ViT-L/16: demo_vit_run, then timed
+    ck.reset_launches()
+    vlosses = demo_vit_run(mesh, vcfg, n_samples=VIT_IMAGES,
+                           window=VIT_WINDOW, batch_per_dp=TRAIN_BATCH,
+                           steps_per_epoch=VIT_STEPS, epochs=VIT_EPOCHS)
+    counts = dict(ck.launches)
+    add(counts)
+    print(f"ViT-L/16 demo_vit_run: {VIT_EPOCHS} epochs x {VIT_STEPS} steps "
+          f"over {VIT_IMAGES} f32 images on the card "
+          f"({VIT_IMAGES * 224 * 224 * 3 * 4 / 1e9:.2f} GB); launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}; losses "
+          f"{[round(v, 4) for v in vlosses]} | {card}")
+    check(counts["index_amortized"] == VIT_EPOCHS
+          and sum(counts.values()) == VIT_EPOCHS,
+          "demo_vit_run did not regenerate with one index_amortized launch "
+          "an epoch")
+    check(len(vlosses) == VIT_EPOCHS * VIT_STEPS
+          and all(np.isfinite(vlosses)), "the ViT losses are not finite")
+    for e in range(VIT_EPOCHS):
+        hold("index_amortized",
+             parallel.sharded_epoch_indices(VIT_IMAGES, VIT_WINDOW, 0, e,
+                                            mesh=mesh),
+             ck.epoch_indices_amortized_ref(VIT_IMAGES, VIT_WINDOW, 0, e, 0,
+                                            1, VIT_IMAGES, device=dev),
+             f"demo_vit_run's regen n={VIT_IMAGES} W={VIT_WINDOW} world=1 "
+             f"epoch={e}")
+    torch.cuda.empty_cache()
+    # demo_vit_run's loop after its set-up (the port has no ViT runner):
+    # one regen an epoch, then the epoch's steps of make_vit_train_step
+    images, labels = synthetic_images(vcfg, VIT_IMAGES, 0, dev)
+    vmodel = init_vit_params(vcfg, torch.Generator().manual_seed(0)).to(dev)
+    vstep = make_vit_train_step(vcfg, make_optimizer(vmodel), mesh,
+                                TRAIN_BATCH)
+
+    def vit_epochs(first):
+        out = []
+        for e in range(first, first + VIT_EPOCHS):
+            idx = parallel.sharded_epoch_indices(VIT_IMAGES, VIT_WINDOW, 0,
+                                                 e, mesh=mesh)
+            out += [vstep(vmodel, images, labels, idx, s)
+                    for s in range(VIT_STEPS)]
+        return torch.stack(out)
+
+    vregen, _ = parallel.make_regen_fn(VIT_IMAGES, VIT_WINDOW, mesh=mesh)
+    vit = time_run("ViT-L/16", vcfg, True, vit_epochs, VIT_EPOCHS, VIT_STEPS,
+                   gpu_ms(lambda: vregen(triple), 50), card)
+    del vmodel, vstep, images, labels
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(json.dumps({"training": {"gpt2_small": gpt, "vit_l16": vit,
+                                   "t1_stall_pct": stall}}))
+    return launches, errs
+
+
 def main() -> None:
     import torch
 
@@ -1340,6 +1879,20 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--regen"]:
         regen_report()
+        return
+    if sys.argv[1:2] == ["--train"]:
+        from partiallyshuffledistributedsampler_tpu_torch.ops import (
+            cuda_kernel as ck,
+        )
+
+        card = nvidia_smi("name,power.limit")
+        print(card)
+        t0 = time.perf_counter()
+        ck.build()
+        print(f"build: {time.perf_counter() - t0:.2f} s")
+        launches, errs = training_phase(
+            card, float(nvidia_smi("clocks.max.sm").split()[0]))
+        print(json.dumps({"launches": launches, "errors": errs}))
         return
     if sys.argv[1:2] == ["--sampling"]:
         card = nvidia_smi("name,power.limit")
@@ -2478,6 +3031,16 @@ def main() -> None:
               f"kernel {name} was not launched on the slice-9 main path")
         stats[name]["err"] = max(stats[name]["err"], errs9[name])
 
+    # ------------------------------------------- slice-10 main path
+    # 18: the consumer layer (counters reset per run inside; launches10
+    # sums them)
+    launches10, errs10 = training_phase(card, max_sm_mhz)
+    print(f"kernels (slice-10 main path): {json.dumps(launches10)}")
+    for name in SLICE10:
+        check(launches10[name] > 0,
+              f"kernel {name} was not launched on the slice-10 main path")
+        stats[name]["err"] = max(stats[name]["err"], errs10[name])
+
     # ---------------------------------------------------------------- 6
     floor_ms = launch_floor_ms(max_sm_mhz)
     print(f"launch floor (empty kernel, back to back): {floor_ms:.4f} ms | "
@@ -2801,6 +3364,32 @@ def main() -> None:
                 s, None, None, 5, 256, epoch_samples=es, triple=t3), 20)
             line += f", device triple {tri_ms:.4f} ms"
         print(f"{line} | {card}")
+    # the masked per-source mixture (plain torch on the card): M1 with the
+    # kernels turned off, and a spec with a source past 2^31, which only
+    # this route takes; each beside mixture_fused at M1 / world 256
+    fused_ms = gpu_ms(lambda: pt.mixture_epoch_indices_cuda(m1, 0, 1, 5,
+                                                            256), 20)
+    big = pt.MixtureSpec(MASKED_BIG_SOURCES, MASKED_BIG_WEIGHTS, windows=W)
+    for label, spec, kw in (("M1", m1, dict(fused=False)),
+                            ("3e9/1e9/5e8 at 60/25/15", big, {})):
+        fn = lambda s=spec, kw=kw: pt.mixture_epoch_indices_cuda(
+            s, 0, 1, 5, 256, **kw)
+        before = sum(ck.launches.values())
+        out = fn()
+        n_launch = sum(ck.launches.values()) - before
+        lanes = out.numel()
+        torch.cuda.reset_peak_memory_stats()
+        ms = gpu_ms(fn, 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"time masked per-source mixture (plain torch) {label} "
+              f"world=256: {ms:.4f} ms device for {lanes} lanes "
+              f"({out.dtype}, {n_launch} kernel launches, {peak:.1f} GiB "
+              f"peak), mixture_fused M1 world=256 {fused_ms:.4f} ms, per "
+              f"lane {ms / lanes:.3e} against {fused_ms / ns_m1:.3e} ms, "
+              f"{(ms / lanes) / (fused_ms / ns_m1):.1f}x | {card}")
+        check(n_launch == 0, "the masked mixture launched a kernel")
+        del out
+        torch.cuda.empty_cache()
 
     # the shard kernels: S1 at world 8 (the main path) and 1, S2, S3, S4
     def shard_work(sizes, sids, wss):
@@ -2976,7 +3565,7 @@ def main() -> None:
             # the count over the main paths' runs
             "launches": sum(run.get(name, 0) for run in (
                 launches, launches2, launches3, launches3b, launches4,
-                launches8, launches9)),
+                launches8, launches9, launches10)),
             "max_abs_err": stats[name]["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

@@ -16,7 +16,11 @@ Data that lives in host memory reaches the card through
 ``HostDataLoader`` (pinned gathers, asynchronous copies), whose stream is
 a ``PartialShuffleSpec`` (or, moving-horizon, a ``StreamSpec``; weighted,
 prioritized or dedup, a ``SamplingSpec``) with the JAX package's wire
-form.
+form.  ``backend="native"`` runs the law in the package's own C++ host
+kernel and ``backend="auto"`` picks a backend by the JAX package's rule.
+The consumers that train from device-resident indices (a GPT and a ViT,
+the train step and the whole-run runners) are in ``models/``; runnable
+examples in ``examples/``.
 """
 
 from .ops import (  # noqa: F401

@@ -1,5 +1,5 @@
 """Permutation primitives: the law core, its CPU reference, the weighted
-mixture (SPEC.md §8) and the CUDA kernels."""
+mixture (SPEC.md §8), the CUDA kernels and the native C++ host kernel."""
 
 import numpy as np
 import torch
@@ -41,19 +41,36 @@ from .mixture import (  # noqa: F401
 )
 
 def ensure_index_backend(backend: str) -> None:
-    """Validate at construction that ``backend`` ('cpu' | 'cuda') can
-    serve: 'cuda' without a usable GPU raises ``CudaUnavailableError``
-    here, never one epoch into a run and never by running on the CPU."""
-    if backend in ("native", "xla"):
+    """Validate at construction that ``backend`` ('cpu' | 'native' |
+    'cuda') can serve: 'cuda' without a usable GPU raises
+    ``CudaUnavailableError`` here, never one epoch into a run and never by
+    running on the CPU; 'native' loads the C++ host library, building it
+    with ``g++`` if needed, and raises ``RuntimeError`` when that fails.
+    'auto' is resolved by the caller before it gets here."""
+    if backend == "xla":
         raise ValueError(
-            f"backend {backend!r} belongs to the JAX package "
+            "backend 'xla' belongs to the JAX package "
             "partiallyshuffledistributedsampler_tpu; this package serves "
-            "'cpu' and 'cuda'"
+            "'cpu', 'native' and 'cuda'"
         )
-    if backend not in ("cpu", "cuda"):
-        raise ValueError(f"backend must be 'cpu' or 'cuda', got {backend!r}")
+    if backend not in ("cpu", "native", "cuda"):
+        raise ValueError(
+            f"backend must be 'cpu', 'native' or 'cuda', got {backend!r}")
     if backend == "cuda":
         require_cuda()
+    elif backend == "native":
+        from . import native
+
+        native._load()
+
+
+def resolve_host_backend() -> str:
+    """The host-side 'auto' rule of every stream whose cost the measured
+    single-source model cannot price (mixture, shard mode, the spec): the
+    native C++ kernel when it loads, the CPU route otherwise."""
+    from . import native
+
+    return "native" if native.available() else "cpu"
 
 
 def host_array(t: torch.Tensor) -> np.ndarray:
@@ -73,10 +90,16 @@ def host_array(t: torch.Tensor) -> np.ndarray:
 def epoch_indices_host(backend: str, n, window, seed, epoch, rank, world,
                        **kwargs) -> np.ndarray:
     """One rank's epoch indices as a host numpy array via ``backend``:
-    'cuda' runs the kernels and reads back once, 'cpu' the reference."""
+    'cuda' runs the kernels and reads back once, 'native' the C++ host
+    kernel, 'cpu' the reference."""
     ensure_index_backend(backend)
     if backend == "cuda":
         return host_array(epoch_indices_cuda(
             n, window, seed, epoch, rank, world, **kwargs))
+    if backend == "native":
+        from .native import epoch_indices_native
+
+        return epoch_indices_native(n, window, seed, epoch, rank, world,
+                                    **kwargs)
     return epoch_indices_cpu(n, window, seed, epoch, rank, world,
                              **kwargs).numpy()

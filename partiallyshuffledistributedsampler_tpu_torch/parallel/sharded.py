@@ -253,6 +253,9 @@ def make_mixture_regen_fn(
     law = dict(epoch_samples=epoch_samples, shuffle=shuffle,
                drop_last=drop_last, order_windows=order_windows,
                partition=partition, rounds=rounds)
+    if mesh.device_type == "cuda" and spec.fused_applies():
+        # the spec's tables go to the card here, so a regen copies nothing
+        cuda_kernel.mixture_tables(spec, mesh.device_type)
 
     def fn(triple: torch.Tensor) -> torch.Tensor:
         agreed = _agree(triple, mesh, axis)

@@ -48,9 +48,10 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from ..ops import core
+from ..ops import core, ensure_index_backend, resolve_host_backend
 from ..ops.cuda_kernel import require_cuda
-from ..service.spec import PartialShuffleSpec, check_backend
+from ..service.spec import PartialShuffleSpec
+from ..utils.autotune import pick_backend
 from ..utils.watchdog import StallError
 
 _SENTINEL = object()
@@ -72,9 +73,11 @@ class HostDataLoader:
     depth: prefetch queue capacity; up to ``depth + 1`` gathered batches
         are live at once (the producer holds one more while the queue is
         full).  The default 1 therefore double-buffers.
-    index_backend: 'cuda' (default: the kernels, one readback per epoch)
-        or 'cpu' (the port's host evaluator).  'auto' and 'native' raise
-        ``ValueError`` (ROADMAP.md, Queue A item 2).
+    index_backend: 'cuda' (default: the kernels, one readback per epoch),
+        'cpu' (the port's host evaluator), 'native' (the C++ host kernel)
+        or 'auto': the host backend for a mixture or shard stream
+        ('native' when it loads, else 'cpu'), and for a single-source
+        stream ``utils.autotune.pick_backend`` (kept as ``_auto_cost``).
     device: where batches land: 'cuda' (default: the current device at
         construction), 'cuda:N', or 'cpu' (plain tensors; no pinning and no
         streams).
@@ -103,6 +106,9 @@ class HostDataLoader:
         the boundary recomputed in the foreground) when it errored or is
         for a different epoch.  Costs one extra epoch index array held
         across the boundary; False restores strictly-serial boundaries.
+        The worker is not a daemon: the interpreter's exit waits for a
+        regen in flight (a daemon thread inside torch ops at exit aborts
+        the process), and :meth:`close` waits for it at once.
     streaming: epochless moving-horizon mode (docs/STREAMING.md): the
         stream becomes a ``StreamSpec`` over ``horizon`` samples per
         generation (plain or mixture base), and ``epoch(g)`` serves
@@ -252,8 +258,18 @@ class HostDataLoader:
         num_samples, _ = core.shard_sizes(
             self.n, world, kwargs.get("drop_last", False)
         )
+        self._auto_cost = None
+        if index_backend == "auto":
+            if mixture is not None or self.shard_sizes is not None:
+                # the cost model prices the single-source law only: a
+                # mixture stream stays host-side, and a shard stream's
+                # cost is its expansion, which no backend choice moves
+                index_backend = resolve_host_backend()
+            else:
+                index_backend, self._auto_cost = pick_backend(num_samples)
         try:
-            check_backend(index_backend)  # 'cuda' without a GPU raises
+            # 'cuda' without a GPU raises; 'native' builds here or raises
+            ensure_index_backend(index_backend)
         except ValueError as exc:
             raise ValueError(f"index_backend: {exc}") from None
         self.window, self.batch = int(window), int(batch)
@@ -432,6 +448,16 @@ class HostDataLoader:
         with self._boundary_lock:
             self._boundary_box = None
 
+    def close(self) -> None:
+        """Wait for the boundary worker, if one is running, and drop the
+        caches.  The loader stays usable: a later ``epoch()`` regenerates
+        in the foreground."""
+        t = self._boundary_thread
+        if t is not None:
+            t.join()
+            self._boundary_thread = None
+        self.clear_cache()
+
     # ------------------------------------------------- boundary prefetch
     def _kick_boundary(self, next_epoch: int) -> None:
         """Start materializing ``next_epoch``'s index stream in the
@@ -454,7 +480,7 @@ class HostDataLoader:
             with self._boundary_lock:
                 self._boundary_box = (next_epoch, idx)
 
-        t = threading.Thread(target=_work, daemon=True,
+        t = threading.Thread(target=_work, daemon=False,
                              name="psds-boundary-prefetch")
         self._boundary_thread = t
         t.start()
@@ -679,11 +705,12 @@ class HostDataLoader:
         finally:
             # consumer broke out (or errored): unblock and retire the thread
             stop.set()
-            while True:  # drain so a blocked put can observe stop
-                try:
-                    q.get_nowait()
-                except queue.Empty:
-                    break
+            # drain so a blocked put can observe stop; under the queue's
+            # own lock, with no exception to catch, because this can run
+            # at interpreter exit after the modules' globals are cleared
+            with q.mutex:
+                q.queue.clear()
+                q.not_full.notify_all()
             t.join(timeout=5.0)
             # the epoch is over (exhausted or abandoned): the one-entry
             # index cache has served its epoch_steps+epoch purpose and

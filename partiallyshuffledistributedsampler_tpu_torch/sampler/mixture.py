@@ -15,7 +15,9 @@ other.
 ``backend='cuda'`` (the default) generates each epoch's ids on the GPU
 with the mixture kernels (``ops/mixture.py``) and streams them back once
 per epoch: ``set_epoch`` launches the regen and a pinned, non-blocking
-device->host copy.  ``backend='cpu'`` runs the plain law on the host.
+device->host copy.  ``backend='cpu'`` runs the plain law on the host,
+``backend='native'`` the C++ host kernel, and ``backend='auto'`` resolves
+to the host backend (native when it loads, else cpu).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 from torch.utils.data import Sampler
 
-from ..ops import core, ensure_index_backend
+from ..ops import core, ensure_index_backend, resolve_host_backend
 from ..ops.mixture import (
     DEFAULT_BLOCK,
     MixtureSpec,
@@ -59,8 +61,11 @@ class PartialShuffleMixtureSampler(ChunkedIterMixin, Sampler):
                    fresh permutation per pass.
     backend:       'cuda' (default: the mixture kernels on the current GPU;
                    a machine without a usable GPU raises
-                   ``CudaUnavailableError`` here) or 'cpu' (the plain law
-                   on the host).  Both prefetch on ``set_epoch``.
+                   ``CudaUnavailableError`` here), 'cpu' (the plain law
+                   on the host), 'native' (the C++ host kernel) or 'auto'
+                   (the host backend: 'native' when it loads, else 'cpu';
+                   the cost model prices only the single-source law).
+                   Each prefetches on ``set_epoch``.
 
     Yields python ints (global ids).  ``decompose(ids)`` maps ids back to
     (source_id, local_id).
@@ -105,6 +110,8 @@ class PartialShuffleMixtureSampler(ChunkedIterMixin, Sampler):
                 f"partition must be 'strided' or 'blocked', got {partition!r}"
             )
         self.partition = partition
+        if backend == "auto":
+            backend = resolve_host_backend()
         ensure_index_backend(backend)  # fail at construction, not epoch 1
         self.backend = backend
         self.rounds = int(rounds)
@@ -138,12 +145,22 @@ class PartialShuffleMixtureSampler(ChunkedIterMixin, Sampler):
         )
 
     def _generate(self, epoch: int) -> torch.Tensor:
-        """The epoch's ids on the backend's device (on the card: launched,
-        not waited for)."""
+        """The epoch's ids on the card (launched, not waited for) or, on
+        'cpu', by the plain law on the host."""
         return mixture_epoch_indices_cuda(
             self.spec, self.seed, epoch, self.rank, self.num_replicas,
             device=self.backend, **self._kwargs(),
         )
+
+    def _generate_host(self, epoch: int) -> np.ndarray:
+        """The epoch's ids as a host array, through ``backend``."""
+        if self.backend == "native":
+            from ..ops.native import mixture_epoch_indices_native
+
+            return mixture_epoch_indices_native(
+                self.spec, self.seed, epoch, self.rank, self.num_replicas,
+                **self._kwargs())
+        return self._generate(epoch).cpu().numpy()
 
     def epoch_indices(self, epoch: Optional[int] = None) -> np.ndarray:
         """This rank's global-id order for ``epoch`` (default: current)."""
@@ -159,7 +176,7 @@ class PartialShuffleMixtureSampler(ChunkedIterMixin, Sampler):
                 self._pending_epoch = None
                 if arr is not None:  # None: forked child, thread never ran
                     return arr
-            return self._generate(e).cpu().numpy()
+            return self._generate_host(e)
 
     def decompose(self, global_ids):
         """(source_id, local_id) arrays for served global ids."""
@@ -187,10 +204,18 @@ class PartialShuffleMixtureSampler(ChunkedIterMixin, Sampler):
         if cached is not None and cached[0] == epoch:
             return cached[1]
         with self.regen_timer.measure():
-            arr = mixture_elastic_indices_cuda(
-                self.spec, self.seed, epoch, self.rank, self.num_replicas,
-                el["layers"], device=self.backend, **self._kwargs(),
-            ).cpu().numpy()
+            if self.backend == "native":
+                from ..ops.native import mixture_elastic_indices_native
+
+                arr = mixture_elastic_indices_native(
+                    self.spec, self.seed, epoch, self.rank,
+                    self.num_replicas, el["layers"], **self._kwargs())
+            else:
+                arr = mixture_elastic_indices_cuda(
+                    self.spec, self.seed, epoch, self.rank,
+                    self.num_replicas, el["layers"], device=self.backend,
+                    **self._kwargs(),
+                ).cpu().numpy()
         arr.setflags(write=False)  # shared across __iter__ calls: read-only
         el["_cache"] = (epoch, arr)
         return arr
@@ -286,7 +311,7 @@ class PartialShuffleMixtureSampler(ChunkedIterMixin, Sampler):
         if self.backend == "cuda":
             self._pending = _DeviceRegen(self._generate(e))
         else:
-            self._pending = _AsyncRegen(lambda: self._generate(e).numpy())
+            self._pending = _AsyncRegen(lambda: self._generate_host(e))
         self._pending_epoch = e
 
     # ------------------------------------------------------ checkpoint state

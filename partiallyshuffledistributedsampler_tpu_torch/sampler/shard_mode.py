@@ -363,8 +363,8 @@ class PartialShuffleShardSampler(PartiallyShuffleDistributedSampler):
         """The epoch's shard ids without touching the ``set_epoch``
         prefetch or the consumption counters: a CUDA tensor regenerated on
         the card (the elastic remainder when ``epoch`` is the one being
-        resumed), or the host array on the cpu backend."""
-        if self.backend == "cpu":
+        resumed), or the host array on a host backend."""
+        if self.backend != "cuda":
             return self._epoch_indices(epoch, consume_prefetch=False)
         if self._elastic is not None and epoch == self.epoch:
             from ..ops.cuda import elastic_indices_cuda
@@ -389,13 +389,13 @@ class PartialShuffleShardSampler(PartiallyShuffleDistributedSampler):
     ) -> torch.Tensor:
         """This rank's expanded global sample indices for ``epoch``
         (default: current): the rank's shard stream expanded with this
-        sampler's ``(seed, rounds)``, as a CUDA tensor (a CPU tensor on the
-        cpu backend).  On the cuda backend the shard ids never leave the
-        card.  Side-effect free: neither the consumption counters nor the
-        ``set_epoch`` prefetch are touched."""
+        sampler's ``(seed, rounds)``, as a CUDA tensor (a CPU tensor, by
+        the plain expansion, on a host backend).  On the cuda backend the
+        shard ids never leave the card.  Side-effect free: neither the
+        consumption counters nor the ``set_epoch`` prefetch are touched."""
         e = self.epoch if epoch is None else int(epoch)
         full, w = shuffle_mode(within_shard_shuffle)
-        device = "cpu" if self.backend == "cpu" else "cuda"
+        device = "cuda" if self.backend == "cuda" else "cpu"
         tables = shard_tables(shard_sizes, device)
         return _expand(
             self._shard_ids(e), tables, seed=self.seed, epoch=e, full=full,

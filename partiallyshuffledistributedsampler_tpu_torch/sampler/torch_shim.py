@@ -6,7 +6,9 @@ distributed.py``): ``__init__`` (a superset of its signature), ``__iter__``,
 unchanged.  ``backend='cuda'`` (the default) generates each rank's index
 tensor on the GPU with the hand-written kernels of ``ops/cuda_kernel.py``
 and streams it back once per epoch; ``backend='cpu'`` runs the CPU
-reference.
+reference and ``backend='native'`` the C++ host kernel (``ops/native.py``);
+``backend='auto'`` picks between the card and the host by a measured cost
+model (``utils/autotune.py``).
 
 Beyond the reference surface:
 
@@ -157,7 +159,12 @@ class PartiallyShuffleDistributedSampler(ChunkedIterMixin, Sampler):
     partition:     'strided' (torch law) or 'blocked' (contiguous shards).
     backend:       'cuda' (default: the CUDA kernels on the current GPU; a
                    machine without a usable GPU raises
-                   ``CudaUnavailableError`` here) or 'cpu' (the reference).
+                   ``CudaUnavailableError`` here), 'cpu' (the reference),
+                   'native' (the C++ host kernel, built at first use; a
+                   failed build raises) or 'auto' (the cheaper of 'cuda'
+                   and the host backend for this rank's shard by
+                   ``utils.autotune.pick_backend``, kept as ``_auto_cost``;
+                   the host backend when no card is usable).
     rounds:        swap-or-not round count (SPEC.md §2); default 24.
 
     ``dataset`` may be any ``Sized`` or a plain ``int`` length.
@@ -215,9 +222,14 @@ class PartiallyShuffleDistributedSampler(ChunkedIterMixin, Sampler):
         self._consumed = 0  # samples yielded so far this epoch (auto-tracked)
         self._generation = 0  # monotonic token: which iterator owns _consumed
         self._elastic = None  # remainder-epoch state after a world-size change
+        self._auto_cost = None
+        if backend == "auto":
+            from ..utils.autotune import pick_backend
+
+            backend, self._auto_cost = pick_backend(self.num_samples)
         from ..ops import ensure_index_backend
 
-        ensure_index_backend(backend)
+        ensure_index_backend(backend)  # 'native' builds here or raises
         self.backend = backend
         self._pending_epoch: Optional[int] = None
         self._pending = None  # in-flight _DeviceRegen / _AsyncRegen
@@ -359,7 +371,7 @@ class PartiallyShuffleDistributedSampler(ChunkedIterMixin, Sampler):
                 shuffle=self.shuffle, order_windows=self.order_windows,
                 partition=self.partition, rounds=self.rounds,
             ).cpu().numpy()
-        else:
+        else:  # 'cpu' and 'native': the remainder law of the CPU route
             from ..ops.cpu import elastic_indices_cpu
 
             arr = elastic_indices_cpu(

@@ -13,8 +13,9 @@ elastic remainder) factored into one value object:
 * ``fingerprint()`` — a stable string of the wire form for cheap
   equality checks.
 
-The backend ('cuda', the default, or 'cpu') is checked at construction
-and is deliberately *excluded* from the wire form: every backend evaluates
+The backend ('cuda', the default, 'cpu', 'native', or 'auto', which
+resolves to the host backend: 'native' when it loads, else 'cpu') is
+checked at construction and is deliberately *excluded* from the wire form: every backend evaluates
 the same normative stream.  On 'cuda' every route runs the hand-written
 kernels and reads the rank's stream back once, into pinned memory
 (``ops.host_array``):
@@ -34,7 +35,9 @@ plain or shard, ``layers``      ``core.elastic_chain`` +
                                 ``elastic_indices_cuda`` (``index_positions``)
 ==============================  =============================================
 
-On 'cpu' the same streams come from the port's ``_cpu`` twins.  The
+On 'cpu' the same streams come from the port's ``_cpu`` twins; on
+'native' from the C++ host kernel (``ops/native.py``), the elastic
+remainders of plain and shard streams from the CPU route.  The
 weighted, prioritized and dedup wire modes are
 ``sampling.SamplingSpec``'s (``weighted_stream``); ``from_wire`` hands
 them to it.
@@ -47,7 +50,12 @@ from typing import Optional
 
 import numpy as np
 
-from ..ops import core, ensure_index_backend, host_array
+from ..ops import (
+    core,
+    ensure_index_backend,
+    host_array,
+    resolve_host_backend,
+)
 from ..ops.mixture import MixtureSpec
 
 _MODES = ("plain", "mixture", "shard")
@@ -56,19 +64,6 @@ _LAW_KWARGS = ("shuffle", "drop_last", "order_windows", "partition",
                "rounds")
 #: the non-uniform sampling wire modes (``sampling.SamplingSpec``)
 _SAMPLING_MODES = ("weighted", "prioritized", "dedup")
-
-
-def check_backend(backend: str) -> None:
-    """``ensure_index_backend`` with the host-side choices named: 'auto'
-    and 'native' wait for this package's host path (ROADMAP.md, Queue A
-    item 2); 'cuda' without a GPU raises ``CudaUnavailableError``."""
-    if backend in ("auto", "native"):
-        raise ValueError(
-            f"backend {backend!r} is not served by this package yet (the "
-            "host-side choices, ROADMAP.md Queue A item 2); pass 'cuda' or "
-            "'cpu'"
-        )
-    ensure_index_backend(backend)
 
 
 class PartialShuffleSpec:
@@ -100,7 +95,9 @@ class PartialShuffleSpec:
                 "use_pallas is a speed knob of the JAX package's xla "
                 "backend; this package has no Pallas path"
             )
-        check_backend(backend)  # fail at construction, not epoch 1
+        if backend == "auto":
+            backend = resolve_host_backend()
+        ensure_index_backend(backend)  # fail at construction, not epoch 1
         self.backend = backend
         self.kwargs = {k: kwargs.pop(k) for k in _LAW_KWARGS if k in kwargs}
         if kwargs:
@@ -235,11 +232,19 @@ class PartialShuffleSpec:
 
                 return epoch_indices_cuda(n, self.window, self.seed, epoch,
                                           rank, self.world, **law)
+            if self.backend == "native":
+                import torch
+
+                from ..ops.native import epoch_indices_native
+
+                return torch.from_numpy(epoch_indices_native(
+                    n, self.window, self.seed, epoch, rank, self.world,
+                    **law))
             from ..ops.cpu import epoch_indices_cpu
 
             return epoch_indices_cpu(n, self.window, self.seed, epoch, rank,
                                      self.world, **law)
-        if self.backend == "cpu":
+        if self.backend != "cuda":
             from ..ops.cpu import elastic_indices_cpu
 
             return elastic_indices_cpu(n, self.window, self.seed, epoch,
@@ -266,6 +271,13 @@ class PartialShuffleSpec:
                 ids.numpy(), self.shard_sizes, seed=self.seed, epoch=epoch,
                 within_shard_shuffle=self.within_shard_shuffle,
                 rounds=rounds).numpy()
+        if self.backend == "native":
+            from ..ops.native import expand_shard_indices_native
+
+            return expand_shard_indices_native(
+                ids.numpy(), self.shard_sizes, seed=self.seed, epoch=epoch,
+                within_shard_shuffle=self.within_shard_shuffle,
+                rounds=rounds)
         from ..ops.shard import shard_tables, shuffle_mode
         from ..sampler.shard_mode import _expand
 
@@ -301,6 +313,14 @@ class PartialShuffleSpec:
             else:
                 out = M.mixture_epoch_indices_cuda(
                     spec, self.seed, epoch, rank, self.world, **kw)
+        elif self.backend == "native":
+            from ..ops import native
+
+            if layers is not None:
+                return native.mixture_elastic_indices_native(
+                    spec, self.seed, epoch, rank, self.world, layers, **kw)
+            return native.mixture_epoch_indices_native(
+                spec, self.seed, epoch, rank, self.world, **kw)
         elif layers is not None:
             out = M.mixture_elastic_indices_cpu(
                 spec, self.seed, epoch, rank, self.world, layers, **kw)

@@ -1313,3 +1313,136 @@ def test_sampling_spec_cuda_matches_cpu(mode):
         fresh.rank_indices(0, 0)
         assert ck.launches["weighted_stream"] == 4
         assert sum(ck.launches.values()) == 4
+
+
+# ------------------------------------------------ the consumer models
+import socket  # noqa: E402
+
+import torch.distributed as dist  # noqa: E402
+
+from partiallyshuffledistributedsampler_tpu_torch import (  # noqa: E402
+    MixtureSpec as _MixtureSpec,
+    parallel as _parallel,
+)
+from partiallyshuffledistributedsampler_tpu_torch.models import (  # noqa: E402,E501
+    GPTConfig,
+    create_state,
+    make_mixture_run_runner,
+    make_run_runner,
+    make_train_step,
+)
+from partiallyshuffledistributedsampler_tpu_torch.models.train import (  # noqa: E402,E501
+    synthetic_tokens,
+)
+
+_MINI = dict(vocab_size=64, seq_len=16, d_model=32, n_layers=1, n_heads=2,
+             d_ff=64)
+
+
+@pytest.fixture
+def meshes():
+    """A process group of one with gloo for CPU tensors and NCCL for CUDA
+    ones: the data mesh on the card and on the host."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield (_parallel.data_mesh(device="cuda"),
+               _parallel.data_mesh(device="cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_trainer_on_card_matches_cpu_route(meshes):
+    """4 f32 steps (TF32 off) on the card against the same steps on the
+    host: losses within 1e-4 relative, parameters within 1e-4 (the key
+    projection's bias, whose gradient is mathematically zero, within
+    2 * lr * steps: see tests/test_torch_port_models.py)."""
+    card, host = meshes
+    cfg = GPTConfig(dtype=torch.float32, **_MINI)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        tokens = synthetic_tokens(cfg, 256, 5, "cpu")
+        runs = []
+        for mesh in (card, host):
+            model, opt = create_state(cfg, mesh, 3)
+            step = make_train_step(cfg, opt, mesh, 4)
+            idx = _parallel.sharded_epoch_indices(256, 32, 7, 0, mesh=mesh)
+            t = tokens.to(mesh.device_type)
+            losses = torch.stack([step(model, t, idx, s) for s in range(4)])
+            runs.append((losses.cpu(), {k: v.cpu() for k, v in
+                                        model.state_dict().items()}))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    (lc, pc), (lh, ph) = runs
+    np.testing.assert_allclose(lc.numpy(), lh.numpy(), rtol=1e-4)
+    d = cfg.d_model
+    for k, v in pc.items():
+        w = ph[k]
+        if k.endswith("qkv.bias"):
+            np.testing.assert_allclose(v[d:2 * d], w[d:2 * d],
+                                       atol=2 * 3e-4 * 4)
+            v, w = torch.cat([v[:d], v[2 * d:]]), torch.cat([w[:d],
+                                                             w[2 * d:]])
+        np.testing.assert_allclose(v.numpy(), w.numpy(), atol=1e-4,
+                                   err_msg=k)
+
+
+def test_runners_make_no_host_sync(meshes):
+    """A whole run (bf16) queues its regens and steps without a host
+    synchronisation, regenerating with one kernel launch an epoch."""
+    card, _host = meshes
+    cfg = GPTConfig(**_MINI)
+    tokens = synthetic_tokens(cfg, 4096, 1, "cuda")
+    spec = _MixtureSpec([2048, 1024, 1024], [70, 20, 10], windows=256)
+    model, opt = create_state(cfg, card, 0)
+    run = make_run_runner(cfg, opt, card, 8, 4, 3, 4096, 256)
+    triple = _parallel.make_seed_triple(0, 0, mesh=card)
+    run(model, tokens, triple, 0)  # warm-up: lazy CUDA initialisation
+    # made after the warm-up: a fresh spec's tables reach the card when
+    # the runner is made, never inside the run
+    mix = make_mixture_run_runner(cfg, opt, card, 8, 4, 2, spec)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = run(model, tokens, triple, 3)
+        mlosses = mix(model, tokens, triple, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ck.launches["index_amortized"] == 3
+    assert ck.launches["mixture_fused"] == 2
+    assert sum(ck.launches.values()) == 5
+    assert losses.shape == (3, 4) and mlosses.shape == (2, 4)
+    assert losses.is_cuda and bool(torch.isfinite(losses).all())
+    assert bool(torch.isfinite(mlosses).all())
+
+
+def test_auto_backend_prices_the_card():
+    """With a card, 'auto' measures the device line on the port's kernel
+    regen and its pinned readback, and the host line on the host backend;
+    the single-source sampler keeps the model as ``_auto_cost`` and serves
+    the same stream whichever it picks."""
+    from partiallyshuffledistributedsampler_tpu_torch.utils import autotune
+
+    model = autotune.cost_model(force=True)
+    assert model["host_backend"] in ("native", "cpu")
+    assert model["dev_rate_ms"] >= 0 and model["host_rate_ms"] >= 0
+    for ns in (1_000, 10_000_000):
+        picked, info = autotune.pick_backend(ns)
+        assert picked in ("cuda", model["host_backend"])
+        assert info["picked"] == picked and info["num_samples"] == ns
+    s = PartiallyShuffleDistributedSampler(50_000, num_replicas=4, rank=1,
+                                           window=512, backend="auto")
+    ref = PartiallyShuffleDistributedSampler(50_000, num_replicas=4, rank=1,
+                                             window=512, backend="cpu")
+    assert s._auto_cost is not None and s.backend == s._auto_cost["picked"]
+    s.set_epoch(2), ref.set_epoch(2)
+    assert list(s) == list(ref)

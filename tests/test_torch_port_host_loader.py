@@ -367,10 +367,12 @@ def test_start_step_bounds_have_the_same_type():
 
 def test_port_refusals():
     kw = dict(window=WINDOW, batch=BATCH)
+    # no card here: 'auto' resolves to the host backend without a probe
     for backend in ("auto", "native"):
-        with pytest.raises(ValueError, match="Queue A item 2"):
-            HostDataLoader(_data(), index_backend=backend, device="cpu",
-                           **kw)
+        loader = HostDataLoader(_data(), index_backend=backend,
+                                device="cpu", **kw)
+        assert loader.index_backend == "native"
+        assert loader._auto_cost is None
     for served in (dict(index_client=object()), dict(capability_mode=True),
                    dict(degraded_fallback=True)):
         with pytest.raises(NotImplementedError, match="Queue A item 7"):

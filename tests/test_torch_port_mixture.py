@@ -463,8 +463,7 @@ def test_sampler_validation_errors():
     for kw, match in ((dict(rank=3), "rank"), (dict(partition="x"),
                                                "partition"),
                       (dict(backend="xla"), "JAX package"),
-                      (dict(backend="native"), "JAX package"),
-                      (dict(backend="auto"), "'cpu' or 'cuda'"),
+                      (dict(backend="tpu"), "'cpu', 'native' or 'cuda'"),
                       (dict(epoch_samples=0), "epoch_samples")):
         args = dict(dict(num_replicas=3, rank=1, backend="cpu"), **kw)
         with pytest.raises(ValueError, match=match):

@@ -242,9 +242,10 @@ def test_port_specific_refusals():
     with pytest.raises(TypeError, match="use_pallas"):
         PartialShuffleSpec.plain(100, window=8, backend="cpu",
                                  use_pallas=True)
+    # 'auto' resolves host-side, to 'native' where the C++ build loads
     for backend in ("auto", "native"):
-        with pytest.raises(ValueError, match="Queue A item 2"):
-            PartialShuffleSpec.plain(100, window=8, backend=backend)
+        assert PartialShuffleSpec.plain(
+            100, window=8, backend=backend).backend == "native"
     with pytest.raises(ValueError, match="JAX package"):
         PartialShuffleSpec.plain(100, window=8, backend="xla")
     # the default backend is the card's, and there is none here
