@@ -127,6 +127,26 @@ plain version and its bound.  Every failure exits non-zero.
   Phase 6 also times the masked per-source mixture (plain torch) at M1
   with the kernels off and for a spec with a source past 2^31.
 
+* Slice 11, signed epoch capabilities and the control plane (phase 19,
+  ``capability_phase``): for C4 1B, M1, S1, W1 and a 1e8-horizon
+  ``StreamSpec`` an ``EpochCapability`` is signed for the current
+  membership, carried through its JSON wire and verified (a tampered copy
+  and another deployment's key refused); ``replay_trail`` on
+  ``backend="cuda"`` over a trail world/2 -> world (rank 0: the prefix it
+  delivered, an orphan descriptor, the remainder; the last rank: joined at
+  the reshard) is held at tolerance 0 against the same spec on 'cpu', each
+  membership launching its kernels once; the replay is timed per
+  membership (host wall with the readbacks, the device span by CUDA
+  events) beside one ``rank_indices``, and sign/verify in microseconds.
+  Then 20 ``epoch_indices_cuda`` regens at 1B/world 256 with telemetry on
+  under ``set_sync_debug_mode("error")`` (one ``psds_epoch_regen`` span
+  each), the regen with telemetry on and off, a fault site's no-plan
+  cost; and three faults on the card: ``loader.prefetch`` at step 3
+  (raised to the consumer, no thread left), ``loader.boundary`` (only the
+  prefetch lost) and ``sampling.alias_build`` on W1 (the uniform table,
+  warned and recorded).  The phase alone: ``python3 chip_smoke.py
+  --capability``.
+
 ``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
 the ``shard_row_keys`` and ``shard_expand`` times, the elastic remainder
 regens, the launches per regen and a digest of each output, through
@@ -343,6 +363,9 @@ SLICE10 = ("index_amortized", "mixture_fused")
 #: takes only the masked per-source route, timed beside M1's
 MASKED_BIG_SOURCES = (3_000_000_000, 1_000_000_000, 500_000_000)
 MASKED_BIG_WEIGHTS = (60, 25, 15)
+#: the kernels the slice-11 main path (the capability replays) launches
+SLICE11 = ("index_amortized", "index_positions", "mixture_fused",
+           "shard_row_keys", "shard_expand", "weighted_stream")
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
@@ -1869,6 +1892,383 @@ def training_phase(card: str, max_sm_mhz: float) -> dict:
     return launches, errs
 
 
+def capability_phase(card: str, max_sm_mhz: float) -> tuple:
+    """Phase 19, the slice-11 main path: signed epoch capabilities and the
+    membership-trail replay on ``backend="cuda"`` over the PERF.md §4
+    shapes, then the control plane on the card.  For each spec kind (C4
+    1B, M1, S1, W1, a 1e8-horizon stream) an ``EpochCapability`` is
+    signed for the current membership and verified, a tampered copy
+    refused; ``replay_trail`` over a trail world/2 -> world (the first
+    membership delivered a prefix; rank 0 with an orphan descriptor) is
+    held at tolerance 0 against the same spec on 'cpu', and each
+    membership launches its kernels once.  Then 20 traced regens at
+    1B/world 256 under ``set_sync_debug_mode("error")`` (one span each),
+    and three faults through ``HostDataLoader`` and ``SamplingSpec`` on
+    the card.  Returns ``(launches, errors)``: the replays' launches and
+    each kernel's largest error against the CPU route."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import partiallyshuffledistributedsampler_tpu_torch as pt
+    from partiallyshuffledistributedsampler_tpu_torch import (
+        capability as C,
+        faults as F,
+        telemetry as T,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.analysis import (
+        lockorder,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        core,
+        cuda_kernel as ck,
+        mixture as M,
+    )
+
+    dev = torch.device("cuda")
+    launches19 = {k: 0 for k in ck.launches}
+    errs = {k: 0 for k in SLICE11}
+    secret = b"chip-smoke-deployment-secret"
+
+    def gpu_ms(fn, reps):
+        return device_ms(fn, reps, max_sm_mhz)
+
+    def counted(fn):
+        """``fn()`` and the launches it made, by kernel."""
+        before = dict(ck.launches)
+        out = fn()
+        return out, {k: v - before[k] for k, v in ck.launches.items()
+                     if v != before[k]}
+
+    def add(total, got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return total
+
+    class PlainOnCard:
+        """A stream by the kernels' plain versions on the card, with the
+        spec surface ``replay_trail`` reads (``with_world``,
+        ``rank_indices``): the replay reference of a cell whose CPU route
+        takes past ~30 s (C4 and M1: rank 0's three memberships at
+        world 128 and 256 are ~17.6M lanes of the plain law)."""
+
+        def __init__(self, full, remainder, world):
+            self.full, self.remainder, self.world = full, remainder, world
+
+        def with_world(self, world):
+            return PlainOnCard(self.full, self.remainder, int(world))
+
+        def rank_indices(self, epoch, rank, layers=None):
+            out = (self.remainder(epoch, rank, self.world, layers) if layers
+                   else self.full(epoch, rank, self.world))
+            return out.cpu().numpy()
+
+    def c4_full(epoch, rank, world):
+        ns = core.shard_sizes(N_C4, world, False)[0]
+        return ck.epoch_indices_amortized_ref(N_C4, W, 0, epoch, rank, world,
+                                              ns, device=dev)
+
+    def c4_remainder(epoch, rank, world, layers):
+        chain, _, ns = core.elastic_chain(N_C4, layers, world)
+        return ck.index_positions_ref(N_C4, W, 0, epoch, rank=rank,
+                                      world=world, num_samples=ns,
+                                      chain=chain, device=dev)
+
+    # ------------------------------------------------------ the cells
+    ns128, _ = core.shard_sizes(N_C4, 128, False)
+    s1 = np.full(SHARDS, SHARD_M, dtype=np.int64)
+    m1 = pt.MixtureSpec(M1_SOURCES, M1_WEIGHTS, windows=W)
+    m1_plain = PlainOnCard(
+        lambda e, r, w: M.mixture_epoch_indices_generic(m1, 0, e, r, w,
+                                                        device=dev),
+        lambda e, r, w, layers: M.mixture_elastic_indices_generic(
+            m1, 0, e, r, w, layers, device=dev), 256)
+    # (label, spec maker, world, what a rank consumed at world/2 in base
+    # units (shards for S1), the kernels of one full membership, of one
+    # remainder, the reference: the spec on 'cpu', or the plain versions
+    # on the card where the CPU route takes past ~30 s)
+    cells = (
+        ("C4 1B/8192", lambda b: pt.PartialShuffleSpec.plain(
+            N_C4, window=W, world=256, backend=b), 256, ns128 // 2,
+         {"index_amortized": 1}, {"index_positions": 1},
+         PlainOnCard(c4_full, c4_remainder, 256)),
+        ("M1", lambda b: pt.PartialShuffleSpec.mixture(
+            m1, world=256, backend=b), 256, ns128 // 2,
+         {"mixture_fused": 1}, {"mixture_fused": 1}, m1_plain),
+        ("S1 100,000 x 1,000", lambda b: pt.PartialShuffleSpec.shard(
+            s1, window=SHARD_W, world=8, backend=b), 8, SHARDS // 8,
+         {"index_amortized": 1, "shard_row_keys": 1, "shard_expand": 1},
+         {"index_positions": 1, "shard_row_keys": 1, "shard_expand": 1},
+         None),
+        ("W1", lambda b: pt.SamplingSpec.weighted(
+            M1_SOURCES, W1_WEIGHTS, weight_kind="per_sample",
+            epoch_samples=N_C4, window=W, world=256, backend=b), 256,
+         ns128 // 2, {"weighted_stream": 1}, {"weighted_stream": 1}, None),
+        ("StreamSpec.plain_stream(1e8, 8192)",
+         lambda b: pt.StreamSpec.plain_stream(N_1E8, window=W, world=256,
+                                              backend=b), 256,
+         core.shard_sizes(N_1E8, 128, False)[0] // 2,
+         {"index_amortized": 1}, {"index_positions": 1}, None),
+    )
+    epoch = 1
+    cpu_total = 0.0
+    plain_cells = []
+    for label, make, world, prefix, full_k, rem_k, plain_ref in cells:
+        card_spec, host_spec = make("cuda"), make("cpu")
+        if plain_ref is not None:
+            plain_cells.append(label)
+        old = world // 2
+        layers = [(old, prefix)]
+        # the samples that prefix is (a shard is SHARD_M samples)
+        delivered = prefix * (SHARD_M if label.startswith("S1") else 1)
+        # the orphan a departed rank left: the last 4,096 of its prefix
+        orphan = {"epoch": epoch, "rank": old - 1, "world": old,
+                  "lo": delivered - 4096, "hi": delivered, "layers": []}
+        # ---- the capability: sign, verify, refuse a tampered copy
+        cap = C.EpochCapability(
+            fingerprint=card_spec.fingerprint(include_world=False),
+            epoch=epoch, seed=card_spec.seed, generation=2, world=world,
+            layers=tuple(layers), elastic_epoch=epoch, orphans=(orphan,),
+            tenant="t-chip", stream_weights=None).signed(secret)
+        wire = C.EpochCapability.from_wire(json.loads(json.dumps(
+            cap.to_wire())))
+        check(wire.verify(secret) and wire == cap,
+              f"{label}: the capability does not verify after its wire")
+        check(not wire.tampered().verify(secret)
+              and not wire.verify(b"another-deployment"),
+              f"{label}: a tampered capability verified")
+        check(wire.fingerprint == host_spec.fingerprint(include_world=False),
+              f"{label}: the capability names another stream")
+        # ---- the replay: rank 0 (its prefix at world/2, the orphan, the
+        # remainder) and the last rank (joined at the reshard: remainder)
+        for rank in (0, world - 1):
+            joined = rank >= old
+            trail = ({"rank": None if joined else rank, "world": old,
+                      "layers": [], "orphans": (), "samples": delivered},)
+            kw = dict(rank=rank, world=wire.world,
+                      layers=[list(x) for x in wire.layers],
+                      orphans=wire.orphans if rank == 0 else (),
+                      elastic_epoch=wire.elastic_epoch, trail=trail)
+            want_k = add(add({}, rem_k), {} if joined else full_k)
+            if rank == 0:
+                want_k = add(want_k, full_k)  # the orphan's membership
+            got, launched = counted(lambda: C.replay_trail(
+                card_spec, wire.epoch, **kw))
+            add(launches19, launched)
+            check(launched == want_k,
+                  f"{label} rank {rank}: the replay launched {launched}, "
+                  f"not {want_k} (each membership once)")
+            # rank 0's three memberships are the long CPU evaluation
+            on_card = plain_ref is not None and rank == 0
+            ref_name = ("the plain versions on the card" if on_card
+                        else "the 'cpu' route")
+            t0 = time.perf_counter()
+            want = C.replay_trail(plain_ref if on_card else host_spec,
+                                  epoch, **kw)
+            ref_s = time.perf_counter() - t0
+            if not on_card:
+                cpu_total += ref_s
+            equal = (got.shape == want.shape and np.array_equal(got, want)
+                     and (on_card or got.dtype == want.dtype))
+            err = (int(np.abs(got.astype(np.int64)
+                              - want.astype(np.int64)).max())
+                   if got.shape == want.shape and got.size else 0)
+            for k in launched:
+                errs[k] = max(errs[k], err)
+            print(f"check replay {label} world {old} -> {world} rank {rank}"
+                  f" ({'joined at the reshard' if joined else 'a prefix of '}"
+                  f"{'' if joined else delivered}"
+                  f"{', an orphan' if rank == 0 else ''}): {got.size} ids "
+                  f"{got.dtype}, launches {json.dumps(launched)}, equal to "
+                  f"{ref_name}: {equal} max_abs_err={err} (tolerance 0; "
+                  f"the reference took {ref_s:.2f} s)")
+            check(equal, f"{label} rank {rank}: the replay on the card "
+                  f"differs from {ref_name}")
+        # ---- the time of a replay, per membership, beside rank_indices
+        rank = 0
+        kw = dict(rank=rank, world=world, layers=layers, orphans=(orphan,),
+                  elastic_epoch=epoch,
+                  trail=({"rank": rank, "world": old, "layers": [],
+                          "orphans": (), "samples": delivered},))
+        memberships = 3  # the prefix, the orphan's, the remainder
+        walls = host_walls(lambda: C.replay_trail(card_spec, epoch, **kw), 5)
+        spans = []
+        for w_, l_, o_ in ((old, [], ()), (world, layers, ())):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            C.membership_stream(card_spec, epoch, rank, w_, l_, o_)
+            b.record()
+            b.synchronize()
+            spans.append(a.elapsed_time(b))
+        one = host_walls(lambda: card_spec.rank_indices(epoch, rank), 5)
+        row = (label, float(np.median(walls)) / memberships, spans,
+               float(np.median(one)))
+        print(f"time replay {label} rank 0 ({memberships} memberships: the "
+              f"prefix at world {old}, the orphan, the remainder at world "
+              f"{world}): host wall with the readbacks median "
+              f"{float(np.median(walls)):.4f} ms = {row[1]:.4f} ms a "
+              f"membership; device span (CUDA events around a membership's "
+              f"kernels and readback) full {spans[0]:.4f} ms, remainder "
+              f"{spans[1]:.4f} ms; one plain rank_indices at world {world} "
+              f"host wall median {row[3]:.4f} ms | {card}")
+        del card_spec, host_spec
+        torch.cuda.empty_cache()
+    print(f"replays held against the CPU route: every one but rank 0 of "
+          f"{' and '.join(plain_cells)} ({cpu_total:.1f} s of CPU evaluation "
+          f"in all); those two held against the kernels' plain versions on "
+          f"the card (their CPU route would take past ~30 s)")
+    for name in SLICE11:
+        check(launches19[name] > 0,
+              f"kernel {name} was not launched by the replays")
+
+    # ---- sign and verify, host µs
+    spec = pt.PartialShuffleSpec.plain(N_C4, window=W, world=256)
+    base_cap = C.EpochCapability(
+        fingerprint=spec.fingerprint(include_world=False), epoch=7, seed=0,
+        generation=3, world=256, layers=((128, ns128 // 2),),
+        elastic_epoch=7, tenant="t-chip")
+    reps = 2000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        signed = base_cap.signed(secret)
+    sign_us = (time.perf_counter() - t0) / reps * 1e6
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ok = signed.verify(secret)
+    verify_us = (time.perf_counter() - t0) / reps * 1e6
+    check(ok, "the timed capability does not verify")
+    print(f"time capability: sign {sign_us:.2f} us, verify {verify_us:.2f} "
+          f"us (host, HMAC-SHA256 over {len(signed.canonical())} canonical "
+          f"bytes; mean of {reps}) | {card}")
+
+    # ---- telemetry on the card: 20 traced regens, no host sync
+    T.reset()
+    T.configure(enabled=True)
+    regen = lambda e=0: pt.epoch_indices_cuda(N_C4, W, 0, e, 3, 256)  # noqa: E731
+    regen()
+    torch.cuda.synchronize()
+    before = len(T.snapshot())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs, launched = counted(lambda: [regen(e) for e in range(20)])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    spans = [e for e in T.snapshot()[before:]
+             if e.get("name") == "psds_epoch_regen"]
+    print(f"telemetry on: 20 regens 1B/8192 world=256 under "
+          f"set_sync_debug_mode('error'): no host sync, {len(spans)} "
+          f"psds_epoch_regen spans (attrs {spans[0]['attrs'] if spans else None}), "
+          f"launches {json.dumps(launched)}")
+    check(len(spans) == 20 and launched == {"index_amortized": 20},
+          "a traced regen is not one span and one launch")
+    ns256, _ = core.shard_sizes(N_C4, 256, False)
+    for e in (0, 19):
+        want = ck.epoch_indices_amortized_ref(N_C4, W, 0, e, 3, 256, ns256,
+                                              device=dev)
+        check(torch.equal(outs[e].long(), want.long()),
+              f"the traced regen of epoch {e} differs from the plain law")
+    del outs
+    on_ms, on_wall = gpu_ms(regen, 20), float(np.median(host_walls(regen,
+                                                                   20)))
+    T.configure(enabled=False)
+    off_ms, off_wall = gpu_ms(regen, 20), float(np.median(host_walls(regen,
+                                                                     20)))
+    print(f"time regen 1B/8192 world=256 with telemetry on / off: device "
+          f"{on_ms:.4f} / {off_ms:.4f} ms, host wall to ready median "
+          f"{on_wall:.4f} / {off_wall:.4f} ms | {card}")
+    hits = 1_000_000
+    t0 = time.perf_counter()
+    for _ in range(hits):
+        F.fire("loader.prefetch")
+    fire_ns = (time.perf_counter() - t0) / hits * 1e9
+    t0 = time.perf_counter()
+    for _ in range(hits):
+        T.span("psds_epoch_regen", n=1, world=1)
+    span_ns = (time.perf_counter() - t0) / hits * 1e9
+    print(f"time the control plane off: a fault site hit with no plan "
+          f"{fire_ns:.1f} ns, a disabled span {span_ns:.1f} ns (host, mean "
+          f"of {hits}) | {card}")
+
+    # ---- faults on the card
+    T.reset()
+    T.configure(enabled=True)
+    base = np.arange(N_C4, dtype=np.int32)  # row r holds r
+    threads = lockorder.thread_snapshot()
+    loader = pt.HostDataLoader(base, window=W, batch=512, rank=5, world=256,
+                               depth=2, boundary_prefetch=False)
+    plan = F.FaultPlan([F.FaultRule("loader.prefetch", "error", nth=3)])
+    served = 0
+    raised = None
+    with plan:
+        try:
+            for b in loader.epoch(1):
+                check(b.is_cuda, "the loader served a host batch")
+                served += 1
+        except F.InjectedFault as exc:
+            raised = exc
+    loader.close()
+    leaked = lockorder.leaked_threads(threads, include_daemon=True)
+    print(f"fault loader.prefetch error nth=3: {served} batches served, "
+          f"then {type(raised).__name__} at step {served + 1} "
+          f"({raised}); threads left behind: {[t.name for t in leaked]}")
+    check(raised is not None and served == 2 and plan.fired() == 1
+          and not leaked, "the prefetch fault did not surface at step 3")
+    loader = pt.HostDataLoader(base, window=W, batch=512, rank=5, world=256)
+    plan = F.FaultPlan([F.FaultRule("loader.boundary", "error")])
+    with plan:
+        it = loader.epoch(1)
+        next(it)
+        it.close()
+        suppressed = loader._boundary_thread is None
+        it, launched = counted(lambda: loader.epoch(2))
+        want = ck.epoch_indices_amortized_ref(N_C4, W, 0, 2, 5, 256, ns256,
+                                              device=dev)
+        ok = all(torch.equal(b.long(), want[s * 512:(s + 1) * 512].long())
+                 for s, b in zip(range(100), it))
+        it.close()
+        idx_ok = np.array_equal(loader.epoch_indices(2),
+                                want.cpu().numpy())
+    loader.close()
+    print(f"fault loader.boundary error: fired {plan.fired()}, the worker "
+          f"suppressed: {suppressed}; epoch 2 regenerated in the foreground "
+          f"({json.dumps(launched)}), its stream equal to the plain law on "
+          f"the card: {idx_ok}, 100 batches equal: {ok}")
+    check(plan.fired() == 1 and suppressed and idx_ok and ok
+          and launched == {"index_amortized": 1},
+          "the boundary fault did more than lose the prefetch")
+    del base, loader, want
+    w1 = pt.SamplingSpec.weighted(M1_SOURCES, W1_WEIGHTS,
+                                  weight_kind="per_sample",
+                                  epoch_samples=N_C4, window=W, world=256)
+    plan = F.FaultPlan([F.FaultRule("sampling.alias_build", "error")])
+    with plan, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got, launched = counted(lambda: w1.rank_indices(1, 3))
+    uniform = pt.SamplingSpec.weighted(
+        M1_SOURCES, (1, 1, 1), epoch_samples=N_C4, window=W, world=256,
+        backend="cpu").rank_indices(1, 3)
+    warned = [str(x.message) for x in caught
+              if issubclass(x.category, RuntimeWarning)]
+    events = [e for e in T.snapshot()
+              if e.get("name") == "sampling_alias_fallback"]
+    fell = np.array_equal(got, uniform)
+    print(f"fault sampling.alias_build error on W1 world=256 rank 3: fired "
+          f"{plan.fired()}, {len(warned)} RuntimeWarning "
+          f"({warned[0][:60] if warned else None}...), {len(events)} "
+          f"sampling_alias_fallback event, launches {json.dumps(launched)}, "
+          f"equal to the uniform table's stream on the CPU route: {fell}")
+    check(plan.fired() == 1 and len(warned) == 1 and len(events) == 1
+          and fell and launched == {"weighted_stream": 1},
+          "the alias-build fault did not fall back to the uniform table")
+    T.reset()
+    check(F.active() is None, "a fault plan stayed armed")
+    return launches19, errs
+
+
 def main() -> None:
     import torch
 
@@ -1891,6 +2291,20 @@ def main() -> None:
         ck.build()
         print(f"build: {time.perf_counter() - t0:.2f} s")
         launches, errs = training_phase(
+            card, float(nvidia_smi("clocks.max.sm").split()[0]))
+        print(json.dumps({"launches": launches, "errors": errs}))
+        return
+    if sys.argv[1:2] == ["--capability"]:
+        from partiallyshuffledistributedsampler_tpu_torch.ops import (
+            cuda_kernel as ck,
+        )
+
+        card = nvidia_smi("name,power.limit")
+        print(card)
+        t0 = time.perf_counter()
+        ck.build()
+        print(f"build: {time.perf_counter() - t0:.2f} s")
+        launches, errs = capability_phase(
             card, float(nvidia_smi("clocks.max.sm").split()[0]))
         print(json.dumps({"launches": launches, "errors": errs}))
         return
@@ -3041,6 +3455,16 @@ def main() -> None:
               f"kernel {name} was not launched on the slice-10 main path")
         stats[name]["err"] = max(stats[name]["err"], errs10[name])
 
+    # ------------------------------------------- slice-11 main path
+    # 19: capabilities and the trail replay on the card, then the control
+    # plane (launches counted per replay inside; launches19 sums them)
+    launches19, errs19 = capability_phase(card, max_sm_mhz)
+    print(f"kernels (slice-11 main path): {json.dumps(launches19)}")
+    for name in SLICE11:
+        check(launches19[name] > 0,
+              f"kernel {name} was not launched on the slice-11 main path")
+        stats[name]["err"] = max(stats[name]["err"], errs19[name])
+
     # ---------------------------------------------------------------- 6
     floor_ms = launch_floor_ms(max_sm_mhz)
     print(f"launch floor (empty kernel, back to back): {floor_ms:.4f} ms | "
@@ -3565,7 +3989,7 @@ def main() -> None:
             # the count over the main paths' runs
             "launches": sum(run.get(name, 0) for run in (
                 launches, launches2, launches3, launches3b, launches4,
-                launches8, launches9, launches10)),
+                launches8, launches9, launches10, launches19)),
             "max_abs_err": stats[name]["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

@@ -20,7 +20,12 @@ form.  ``backend="native"`` runs the law in the package's own C++ host
 kernel and ``backend="auto"`` picks a backend by the JAX package's rule.
 The consumers that train from device-resident indices (a GPT and a ViT,
 the train step and the whole-run runners) are in ``models/``; runnable
-examples in ``examples/``.
+examples in ``examples/``.  The control plane's foundations carry the JAX
+package's names, wire bytes and environment variables: signed epoch
+capabilities and the membership-trail replay (``capability/``), fault
+injection (``faults/``), tracing and metrics export (``telemetry/``,
+``utils/metrics.py``), the lock-order sanitizer (``analysis/``), retry
+policies and sampler-state files (``utils/``).
 """
 
 from .ops import (  # noqa: F401

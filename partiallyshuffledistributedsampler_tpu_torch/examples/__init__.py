@@ -2,5 +2,8 @@
 ``torch_ddp`` (a DDP pipeline with the sampler swapped in), ``training``
 (training on the card from device-resident indices) and
 ``imagenet_resnet`` (the ImageNet-1k index space, a checkpointed training
-slice and a ViT).  Each runs on the card and takes ``--cpu`` to run on the
-host instead."""
+slice and a ViT), ``llama3_10b_index`` (the 10B-sample index space by
+random access, a rank's whole epoch, reseeds and the pretrain mixture) and
+``webdataset_shards`` (the shard-index stream of tar shards, expanded on
+the card).  Each runs on the card and takes ``--cpu`` to run on the host
+instead."""

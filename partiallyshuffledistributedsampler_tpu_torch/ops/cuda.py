@@ -26,13 +26,27 @@ is what the CPU tests use.
 
 ``build_evaluator`` is the plain torch evaluator of a static config, on
 any device, with the same amortized/general routing.
+
+The regen and the remainder run inside the telemetry spans
+``psds_epoch_regen`` and ``psds_elastic_regen`` (the JAX package's names
+and attributes, ``ops/xla.py``) and a profiler range of the same name.  A
+span times the host call only (the launch): it never waits for the card.
 """
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
+from ..telemetry import span as _span
 from . import core, cuda_kernel
+
+
+def _attr(v):
+    """A span attribute from a scalar argument: the int, or None for a
+    key read from a device triple (never a read of device memory)."""
+    return int(v) if isinstance(v, numbers.Integral) else None
 
 
 def _amortized_applicable(n: int, window: int, world: int, shuffle: bool,
@@ -141,7 +155,10 @@ def epoch_indices_cuda(
         )
     core.check_index_space(n, window)
     wide = core.is_wide(n)
-    with torch.profiler.record_function("psds_epoch_regen"):
+    # host span and profiler range share one name, as the JAX package's
+    # span and device annotation do
+    with _span("psds_epoch_regen", n=n, world=world), \
+            torch.profiler.record_function("psds_epoch_regen"):
         if amortize and _amortized_applicable(n, window, world, shuffle,
                                               partition):
             amortized = (cuda_kernel.index_amortized_wide if wide
@@ -216,7 +233,9 @@ def elastic_indices_cuda(
     cuda_kernel.device_kind(device)
     kernel = (cuda_kernel.index_positions_wide if core.is_wide(int(n))
               else cuda_kernel.index_positions)
-    with torch.profiler.record_function("psds_elastic_regen"):
+    with _span("psds_elastic_regen", epoch=_attr(epoch),
+               rank=_attr(rank)), \
+            torch.profiler.record_function("psds_elastic_regen"):
         return kernel(n, window, seed, epoch, rank=rank, world=world,
                       num_samples=num_samples, chain=chain,
                       partition=partition, shuffle=shuffle,

@@ -48,6 +48,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from .. import faults as F
+from ..analysis.lockorder import new_lock
 from ..ops import core, ensure_index_backend, resolve_host_backend
 from ..ops.cuda_kernel import require_cuda
 from ..service.spec import PartialShuffleSpec
@@ -304,7 +306,7 @@ class HostDataLoader:
             )
             self._regen_stream = torch.cuda.Stream(self._regen_device)
         self.boundary_prefetch = bool(boundary_prefetch)
-        self._boundary_lock = threading.Lock()
+        self._boundary_lock = new_lock("loader.boundary")
         self._boundary_thread: Optional[threading.Thread] = None
         self._boundary_box = None  # (epoch, idx) or (epoch, None): error
         self._idx_cache = None
@@ -461,8 +463,23 @@ class HostDataLoader:
     # ------------------------------------------------- boundary prefetch
     def _kick_boundary(self, next_epoch: int) -> None:
         """Start materializing ``next_epoch``'s index stream in the
-        background so the next ``epoch()`` call finds it ready."""
+        background so the next ``epoch()`` call finds it ready.
+
+        Under an armed fault plan the worker is suppressed: its regen
+        would interleave with the foreground's and perturb the plan's
+        deterministic per-site hit counters.  The ``loader.boundary`` site
+        still draws — in the caller's thread, so chaos runs stay
+        replayable — and any firing fault simply loses the prefetch (the
+        boundary falls back to foreground regen, stream unchanged)."""
         if not self.boundary_prefetch:
+            return
+        if F.active() is not None:
+            try:
+                F.fire("loader.boundary")
+            except F.InjectedThreadDeath:
+                pass  # the worker "died": the prefetch is simply lost
+            except F.InjectedFault:
+                pass  # advisory path: a typed fault only loses the overlap
             return
         with self._boundary_lock:
             box = self._boundary_box
@@ -472,6 +489,7 @@ class HostDataLoader:
             return  # already prefetched (or in flight)
 
         def _work() -> None:
+            F.fire("loader.boundary")
             try:
                 idx = self._compute_epoch_indices(next_epoch, None)
                 idx.setflags(write=False)
@@ -497,6 +515,10 @@ class HostDataLoader:
             self._boundary_thread = None
         with self._boundary_lock:
             box, self._boundary_box = self._boundary_box, None
+        if F.active() is not None:
+            # an armed plan targets the FOREGROUND path's deterministic
+            # draw sequence; adopting a pre-plan prefetch would skip it
+            return None
         if box is None or box[0] != epoch:
             return None
         return box[1]
@@ -513,6 +535,7 @@ class HostDataLoader:
         return scope
 
     def _compute_epoch_indices(self, epoch: int, layers) -> np.ndarray:
+        F.fire("loader.regen")
         # the shared stream description; §6 elastic remainder layers ride
         # the same surface for every stream kind
         with self._regen_scope():
@@ -659,12 +682,15 @@ class HostDataLoader:
                     for s in range(start_step, steps):
                         if stop.is_set():
                             return
+                        F.fire("loader.prefetch")
                         lo = s * self.batch
                         item = self._to_device(
                             self._gather(idx[lo:lo + self.batch]))
                         progress["ts"] = time.monotonic()
                         if not _put(item):
                             return
+            except F.InjectedThreadDeath:
+                return  # simulated silent death: no error, no sentinel
             except Exception as exc:
                 # deliver the ORIGINAL exception object (its traceback
                 # intact) — the consumer re-raises it, so the user's

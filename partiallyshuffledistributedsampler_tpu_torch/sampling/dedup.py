@@ -1,4 +1,4 @@
-"""Seen-set dedup filtering: deterministic, checkpointable.
+"""Seen-set dedup filtering: deterministic, checkpointable, fail-safe.
 
 The dedup stream wraps the weighted draw with a seeded seen-set fold:
 epoch ``e``'s global stream walks draw ordinals ``p = 0..T-1`` in order,
@@ -17,6 +17,11 @@ Two seen-set kinds:
   always recognised), a fixed bit budget; a false positive only costs an
   extra re-draw.
 
+The fault site ``sampling.dedup_check`` wraps every membership test of a
+candidate draw.  A firing rule makes the check *fail safe*: the candidate
+is treated as seen and re-drawn, so an injected fault can delay a sample
+but can never double-serve one.
+
 The candidates, one row per retry round, come from the weighted kernel:
 on ``backend="cuda"`` one ``weighted_stream`` launch a round over the
 ordinals, read back once; the sequential fold is host Python, the
@@ -31,6 +36,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import faults as F
+from .. import telemetry
 from ..ops import core, ensure_index_backend, host_array
 from .alias import AliasTable, kernel_for, weighted_stream_at_generic
 
@@ -159,7 +166,17 @@ def restore_seen(wire: dict, seed) -> object:
 
 
 def dedup_check(seen, x: int) -> bool:
-    """Membership test of a candidate draw."""
+    """Membership test for a candidate draw, routed through the
+    ``sampling.dedup_check`` fault site.  An injected fault degrades to
+    *seen* — the fail-safe direction: the candidate is re-drawn rather
+    than risked as a double-serve."""
+    try:
+        F.fire("sampling.dedup_check")
+    except F.InjectedThreadDeath:
+        raise
+    except Exception as exc:  # lint: allow-broad-except(injected dedup fault degrades to the fail-safe 'seen' verdict)
+        telemetry.event("sampling_dedup_failsafe", detail=repr(exc))
+        return True
     return seen.contains(int(x))
 
 
@@ -241,6 +258,8 @@ def fold_epoch(
         seen.add(x)
         out[p] = x
     if saturated:
+        telemetry.event("sampling_dedup_saturated", epoch=int(epoch),
+                        draws=int(saturated))
         warnings.warn(
             f"dedup id space saturated for {saturated} draw(s) in epoch "
             f"{int(epoch)}: every id was already served; repeats are "

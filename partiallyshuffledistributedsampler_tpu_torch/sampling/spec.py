@@ -25,12 +25,14 @@ host Python.  On 'cpu' the same streams come from the plain law.
 
 from __future__ import annotations
 
-import threading
 import warnings
 from typing import Optional
 
 import numpy as np
 
+from .. import faults as F
+from .. import telemetry
+from ..analysis.lockorder import new_lock
 from ..ops import core, host_array
 from ..service.spec import PartialShuffleSpec
 # per-epoch adopted-weights retention shares the stream horizon's bound
@@ -129,7 +131,7 @@ class SamplingSpec(PartialShuffleSpec):
         # dedup memoization, all guarded by self._dedup_lock:
         #   _dedup_boundary: epoch -> seen-set at that epoch's START
         #   _dedup_streams:  epoch -> folded global stream (length T)
-        self._dedup_lock = threading.Lock()
+        self._dedup_lock = new_lock("sampling.spec")
         self._dedup_boundary: dict = {}
         self._dedup_streams: dict = {}
 
@@ -216,15 +218,22 @@ class SamplingSpec(PartialShuffleSpec):
 
     # --------------------------------------------------------- alias table
     def _table_for(self, epoch: int) -> A.AliasTable:
-        """Epoch's alias table.  Adopted weights that build no table
-        (wrong length, zero mass) fall back to the UNIFORM table, loudly:
-        a degraded-but-serving stream beats a dead epoch, and the fallback
-        is deterministic, so every surface serves the same stream."""
+        """Epoch's alias table, built through the ``sampling.alias_build``
+        fault site.  A build fault (adopted weights of the wrong length or
+        zero mass, or an injected one) falls back to the UNIFORM table,
+        loudly (telemetry event + RuntimeWarning): a degraded-but-serving
+        stream beats a dead epoch, and the fallback is deterministic, so
+        every surface that hits the same fault serves the same stream."""
         w = self.effective_weights(epoch)
         try:
+            F.fire("sampling.alias_build")
             return A.build_alias_table(w, self.weight_kind,
                                        self.source_sizes)
-        except (TypeError, ValueError) as exc:
+        except F.InjectedThreadDeath:
+            raise
+        except Exception as exc:  # lint: allow-broad-except(alias-build fault degrades to the uniform table, loudly)
+            telemetry.event("sampling_alias_fallback", epoch=int(epoch),
+                            detail=repr(exc))
             warnings.warn(
                 f"alias table build failed for epoch {int(epoch)} "
                 f"({exc!r}); serving UNIFORM weights", RuntimeWarning,

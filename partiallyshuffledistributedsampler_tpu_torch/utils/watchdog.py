@@ -49,3 +49,12 @@ class StallError(RuntimeError):
             message = (f"{message} (thread {self.thread_name!r} is dead; "
                        "no stack available)")
         super().__init__(message)
+        # a stall is one of the flight recorder's dump triggers
+        # (docs/OBSERVABILITY.md); no-op unless telemetry is on with a
+        # dump_dir, and never allowed to break the error itself
+        try:
+            from ..telemetry import auto_dump
+            auto_dump("stall", thread=self.thread_name,
+                      alive=self.thread_alive)
+        except Exception:  # lint: allow-broad-except(observability is best-effort here)
+            pass

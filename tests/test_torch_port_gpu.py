@@ -1446,3 +1446,143 @@ def test_auto_backend_prices_the_card():
     assert s._auto_cost is not None and s.backend == s._auto_cost["picked"]
     s.set_epoch(2), ref.set_epoch(2)
     assert list(s) == list(ref)
+
+
+# ------------------------------------------------- capability replay, faults
+def _replay_pair(kind: str, world: int):
+    """The same spec on 'cuda' and 'cpu', and a (consumed, next consumed)
+    cascade valid for it."""
+    from partiallyshuffledistributedsampler_tpu_torch import (
+        MixtureSpec,
+        PartialShuffleSpec,
+        SamplingSpec,
+        StreamSpec,
+    )
+
+    def both(make):
+        return make("cuda"), make("cpu")
+
+    if kind == "plain":
+        return (*both(lambda b: PartialShuffleSpec.plain(
+            100_000, window=512, seed=5, world=world, backend=b)),
+            (3000, 2000))
+    if kind == "mixture":
+        return (*both(lambda b: PartialShuffleSpec.mixture(
+            MixtureSpec([60_000, 30_000, 10_000], [6, 3, 1], windows=512),
+            seed=2, world=world, backend=b)), (3000, 2000))
+    if kind == "shard":
+        sizes = np.random.default_rng(3).integers(8, 200, 2000)
+        return (*both(lambda b: PartialShuffleSpec.shard(
+            sizes, seed=4, world=world, backend=b)), (50, 40))
+    if kind == "stream":
+        return (*both(lambda b: StreamSpec.plain_stream(
+            50_000, window=256, seed=6, world=world, backend=b)),
+            (1000, 800))
+    return (*both(lambda b: SamplingSpec.weighted(
+        (60_000, 30_000, 10_000), (1, 3, 2), epoch_samples=100_000, seed=3,
+        world=world, window=512, backend=b)), (3000, 2000))
+
+
+@pytest.mark.parametrize("kind", ["plain", "mixture", "shard", "stream",
+                                  "weighted"])
+def test_replay_on_cuda_equals_cpu(kind):
+    """``replay_trail`` over a three-membership trail (world 4 -> 3 -> 2)
+    with orphans on rank 0: on 'cuda' each membership is its kernels' one
+    regen at that membership's world and a readback, bit-identical to
+    the 'cpu' route."""
+    from partiallyshuffledistributedsampler_tpu_torch.capability import (
+        membership_stream,
+        replay_trail,
+    )
+
+    card, host, (c1, c2) = _replay_pair(kind, 2)
+    orphans = ({"epoch": 1, "rank": 2, "world": 3, "lo": 1, "hi": 60,
+                "layers": [[4, c1]]},)
+    for rank in range(4):
+        trail = ({"rank": rank, "world": 4, "layers": [], "orphans": (),
+                  "samples": 500 + rank},
+                 {"rank": rank, "world": 3, "layers": [[4, c1]],
+                  "orphans": orphans if rank == 0 else (), "samples": 300})
+        kw = dict(rank=rank if rank < 2 else None, world=2,
+                  layers=[(4, c1), (3, c2)],
+                  orphans=orphans if rank == 0 else (), elastic_epoch=1,
+                  trail=trail)
+        ck.reset_launches()
+        got = replay_trail(card, 1, **kw)
+        regens = sum(ck.launches.values())
+        want = replay_trail(host, 1, **kw)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+        # regens: each trail entry with a rank inside its world, the
+        # current membership, and rank 0's orphan in both memberships
+        per = {"shard": 3}.get(kind, 1)
+        assert regens == {0: 5, 1: 3, 2: 2, 3: 1}[rank] * per
+    ck.reset_launches()
+    one = membership_stream(card, 0, 1, 2, [], ())
+    np.testing.assert_array_equal(one, host.rank_indices(0, 1))
+    assert sum(ck.launches.values()) == {"shard": 3}.get(kind, 1)
+
+
+def test_traced_regen_makes_no_host_sync():
+    """With telemetry on, a regen records its ``psds_epoch_regen`` span
+    and makes no host synchronisation (the span times the launch only)."""
+    from partiallyshuffledistributedsampler_tpu_torch import telemetry
+
+    telemetry.reset()
+    telemetry.configure(enabled=True)
+    try:
+        cuda.epoch_indices_cuda(10**9, 8192, 0, 0, 3, 256)  # warm-up
+        torch.cuda.synchronize()
+        before = len(telemetry.snapshot())
+        ck.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [cuda.epoch_indices_cuda(10**9, 8192, 0, e, 3, 256)
+                    for e in range(20)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        spans = [e for e in telemetry.snapshot()[before:]
+                 if e.get("name") == "psds_epoch_regen"]
+        assert len(spans) == 20 and ck.launches["index_amortized"] == 20
+        assert spans[0]["attrs"] == {"n": 10**9, "world": 256}
+        np.testing.assert_array_equal(
+            outs[7][:4096].cpu().numpy(),
+            jcpu.epoch_indices_np(10**9, 8192, 0, 7, 3, 256)[:4096])
+    finally:
+        telemetry.reset()
+
+
+def test_loader_faults_on_the_card():
+    """``loader.prefetch`` raises at its step and leaves no thread behind;
+    ``loader.boundary`` loses only the prefetch: the next epoch is the
+    plain law, regenerated by the kernel in the foreground."""
+    from partiallyshuffledistributedsampler_tpu_torch import (
+        HostDataLoader,
+        faults,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.analysis import (
+        lockorder,
+    )
+
+    data = np.arange(100_000, dtype=np.int64)
+    loader = HostDataLoader(data, window=512, batch=256, world=4, rank=1)
+    base = lockorder.thread_snapshot()
+    plan = faults.FaultPlan([faults.FaultRule("loader.prefetch", "error",
+                                              nth=3)])
+    served = 0
+    with plan, pytest.raises(faults.InjectedFault):
+        for _ in loader.epoch(0):
+            served += 1
+    assert served == 2 and plan.fired() == 1
+    loader.close()
+    assert lockorder.leaked_threads(base, include_daemon=True) == []
+    with faults.FaultPlan([faults.FaultRule("loader.boundary", "error")]):
+        first = torch.cat(list(loader.epoch(1))).cpu()
+        assert loader._boundary_thread is None
+        ck.reset_launches()
+        second = torch.cat(list(loader.epoch(2))).cpu()
+        assert ck.launches["index_amortized"] == 1
+    for e, got in ((1, first), (2, second)):
+        want = jcpu.epoch_indices_np(100_000, 512, 0, e, 1, 4)
+        np.testing.assert_array_equal(got.numpy(), want[:len(got)])
