@@ -146,6 +146,26 @@ plain version and its bound.  Every failure exits non-zero.
   prefetch lost) and ``sampling.alias_build`` on W1 (the uniform table,
   warned and recorded).  The phase alone: ``python3 chip_smoke.py
   --capability``.
+* Slice 12, the index service (phase 20, ``service_phase``): servers and
+  clients run as threads of this process, every regen on specs with
+  ``backend="cuda"``.  C4 1B / 8192 at world 256 served to 8 clients
+  (ranks 0-6 and 255, transport batch 4,096), each stream byte-equal to a
+  direct ``epoch_indices_cuda`` readback (ranks 0 and 255 also to the
+  plain law on the card), one ``index_amortized`` an ``(epoch, rank)``, a
+  reconnect replayed from the cache with no launch; one multi-tenant
+  daemon with C4, M1 and W1 (two ranks each, concurrent regens, one
+  launch of each tenant's kernel a regen); ImageNet at world 8 resharded
+  to 16 after a third of the epoch (the union exactly once by
+  ``tests/conftest.py``'s law, one ``index_positions`` a remainder rank);
+  a primary killed under its ``role="standby"`` twin after 200 batches
+  (streams without a gap or a duplicate, the failover time); a
+  capability-mode client (zero index bytes on the wire); and
+  ``HostDataLoader`` served over T1's rows behind the 5 ms step (stall %
+  beside the local loader's), then degraded to a local regen on the card
+  when its daemon stops.  Reported: ``epoch_regen_ms`` p50/p99 beside a
+  direct regen, the ``GET_BATCH`` round trip, batches/s and MB/s a client
+  and together, the failover time, wire bytes, the stall, launches.  The
+  phase alone: ``python3 chip_smoke.py --service``.
 
 ``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
 the ``shard_row_keys`` and ``shard_expand`` times, the elastic remainder
@@ -366,6 +386,17 @@ MASKED_BIG_WEIGHTS = (60, 25, 15)
 #: the kernels the slice-11 main path (the capability replays) launches
 SLICE11 = ("index_amortized", "index_positions", "mixture_fused",
            "shard_row_keys", "shard_expand", "weighted_stream")
+#: slice 12, the index service (phase 20): C4 at world 256 served to
+#: ranks 0-6 and 255 at a transport batch of 4,096; the elastic cell's
+#: ImageNet worlds; the failover cell's ranks and batches before the kill
+SERVE_WORLD, SERVE_BATCH = 256, 4096
+SERVE_RANKS = (0, 1, 2, 3, 4, 5, 6, 255)
+ELASTIC_WORLDS = (8, 16)
+FAILOVER_RANKS, FAILOVER_BATCHES = 4, 200
+#: the kernels the slice-12 main path (the servers' and clients' regens)
+#: launches
+SLICE12 = ("index_amortized", "index_positions", "mixture_fused",
+           "weighted_stream")
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
@@ -964,14 +995,6 @@ def host_loader_timing(card: str, max_sm_mhz: float) -> dict:
             self.times.append((self._gather_s, a, b))
             return out, ev
 
-    def pattern_errors(b, ids):
-        """Bytes of a batch that break the pattern: each row's first 4
-        bytes hold its row id, every other byte the id mod 251."""
-        b8 = b.view(torch.uint8).reshape(b.shape[0], -1)
-        hdr = b8[:, :4].contiguous().view(torch.int32).reshape(-1)
-        return ((hdr != ids).sum()
-                + (b8[:, 4:] != (hdr % 251).to(torch.uint8)[:, None]).sum())
-
     # the host link: one 256 MB pinned copy, best of 5 after a warm-up
     src = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
     dst = torch.empty(src.shape, dtype=torch.uint8, device=dev)
@@ -1002,13 +1025,9 @@ def host_loader_timing(card: str, max_sm_mhz: float) -> dict:
 
     for label, rows, shape, dtype, world, batch, steps, stall_steps in T_CASES:
         t0 = time.perf_counter()
-        data = np.empty((rows,) + shape, dtype=dtype)
-        b8 = data.reshape(rows, -1).view(np.uint8)
-        b8[:, 4:] = (np.arange(rows) % 251).astype(np.uint8)[:, None]
-        b8[:, :4] = np.arange(rows, dtype=np.int32).view(np.uint8).reshape(
-            rows, 4)
+        data = pattern_rows(rows, shape, dtype)
         fill_s = time.perf_counter() - t0
-        row_bytes = b8.shape[1]
+        row_bytes = data.nbytes // rows
         print(f"{label}: {rows} rows of {shape} {np.dtype(dtype).name} "
               f"({row_bytes} B), {data.nbytes / 2**30:.2f} GiB host, filled "
               f"in {fill_s:.2f} s; world {world}, batch {batch}")
@@ -1082,7 +1101,7 @@ def host_loader_timing(card: str, max_sm_mhz: float) -> dict:
         print(f"{label}: {checked} served batches checked against the row "
               f"pattern on the card: {errors} bytes wrong")
         check(errors == 0, f"{label}: a served batch breaks its pattern")
-        del data, b8, ld
+        del data, ld
         torch.cuda.empty_cache()
     return {k: v - before[k] for k, v in ck.launches.items()}
 
@@ -2269,6 +2288,620 @@ def capability_phase(card: str, max_sm_mhz: float) -> tuple:
     return launches19, errs
 
 
+def pattern_rows(rows: int, shape, dtype):
+    """Phase 16's host rows: row r's first 4 bytes hold r (int32), every
+    other byte r mod 251."""
+    import numpy as np
+
+    data = np.empty((rows,) + tuple(shape), dtype=dtype)
+    b8 = data.reshape(rows, -1).view(np.uint8)
+    b8[:, 4:] = (np.arange(rows) % 251).astype(np.uint8)[:, None]
+    b8[:, :4] = np.arange(rows, dtype=np.int32).view(np.uint8).reshape(rows,
+                                                                       4)
+    return data
+
+
+def pattern_errors(b, ids):
+    """Bytes of a batch of ``pattern_rows`` on the card that break the
+    pattern for the row ids ``ids``."""
+    import torch
+
+    b8 = b.view(torch.uint8).reshape(b.shape[0], -1)
+    hdr = b8[:, :4].contiguous().view(torch.int32).reshape(-1)
+    return ((hdr != ids).sum()
+            + (b8[:, 4:] != (hdr % 251).to(torch.uint8)[:, None]).sum())
+
+
+def union_exactly_once(consumed_vals, remainder_vals, stream, old_world,
+                       consumed, new_world) -> str:
+    """``tests/conftest.py::assert_exactly_once`` for a strided partition,
+    as a message ('' when it holds): the old ranks' ``consumed`` samples
+    each plus the new ranks' remainders are the epoch ``stream`` as a
+    multiset, plus exactly the wrap-pad count of extras, each drawn from
+    the unconsumed part of the stream."""
+    import numpy as np
+
+    total = len(stream)
+    rem = total - consumed * old_world
+    n_extra = -(-rem // new_world) * new_world - rem
+    span = int(max(stream.max(), np.max(consumed_vals, initial=0),
+                   np.max(remainder_vals, initial=0))) + 1
+    got = (np.bincount(consumed_vals, minlength=span)
+           + np.bincount(remainder_vals, minlength=span))
+    full = np.bincount(stream, minlength=span)
+    if (got < full).any():
+        return f"{int((full - got).clip(0).sum())} epoch values missing"
+    extras = got - full
+    if int(extras.sum()) != n_extra:
+        return f"{int(extras.sum())} extras, the wrap pad is {n_extra}"
+    allowed = np.bincount(stream[old_world * consumed:], minlength=span)
+    if (extras > allowed).any():
+        return "a wrap-pad extra is not from the remainder"
+    return ""
+
+
+def service_phase(card: str, max_sm_mhz: float) -> tuple:
+    """Phase 20, the slice-12 main path: the index service on the card.
+    ``IndexServer`` and ``ServiceIndexClient`` s run as threads of this
+    process (nothing forks after CUDA is initialized), each regen of the
+    servers through specs on ``backend="cuda"``.  Six cases: C4 served to
+    8 clients; a multi-tenant daemon with C4, M1 and W1; an elastic
+    reshard 8 -> 16 over ImageNet; a primary killed under its standby; a
+    capability-mode client; ``HostDataLoader`` served, then degraded to a
+    local regen.  Every stream is held at tolerance 0.  Returns
+    ``(launches, errors)``: the servers' and clients' launches, and each
+    kernel's largest error against its plain version."""
+    import threading
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import partiallyshuffledistributedsampler_tpu_torch as pt
+    from partiallyshuffledistributedsampler_tpu_torch import telemetry as T
+    from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        core,
+        cuda_kernel as ck,
+        mixture as M,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.sampling import (
+        alias as A,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.service import (
+        IndexServer,
+        ServiceError,
+        ServiceIndexClient,
+        protocol as P,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.utils.stall_probe import (
+        StallProbe,
+    )
+
+    dev = torch.device("cuda")
+    launches20 = {k: 0 for k in ck.launches}
+    errs = {}  # only the kernels held against their plain versions
+    t_phase = time.perf_counter()
+
+    def hold(name, got, want, label):
+        """A host stream ``got`` against the plain version ``want`` on the
+        card at tolerance 0; its largest error into ``errs``."""
+        g = torch.from_numpy(np.array(got)).to(dev).long()
+        same = g.shape == want.shape
+        err = (int((g - want.long()).abs().max()) if same and g.numel()
+               else 0)
+        errs[name] = max(errs.get(name, 0), err)
+        check(same and err == 0, f"{name} {label}: {g.numel()} lanes "
+              f"against {want.numel()} of the plain version, max_abs_err "
+              f"{err}")
+
+    def take_launches() -> dict:
+        """The launches since the last reset, added to the phase's, and
+        the counters reset."""
+        got = {k: v for k, v in ck.launches.items() if v}
+        for k, v in got.items():
+            launches20[k] += v
+        ck.reset_launches()
+        return got
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+    def run_threads(fns, timeout=300.0):
+        """Run each of ``fns`` on a thread; raise the first error."""
+        errors = []
+
+        def wrap(fn):
+            try:
+                fn()
+            except BaseException as exc:  # reported below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=wrap, args=(fn,)) for fn in fns]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout)
+            check(not t.is_alive(), "a service thread hung")
+        if errors:
+            raise errors[0]
+
+    c4 = pt.PartialShuffleSpec.plain(N_C4, window=W, world=SERVE_WORLD)
+    ns256, _ = core.shard_sizes(N_C4, SERVE_WORLD, False)
+
+    # ---- case 1: C4 served to 8 clients
+    direct = {r: c4.rank_indices(0, r) for r in SERVE_RANKS}
+    direct_ms = float(np.median(host_walls(lambda: c4.rank_indices(0, 3),
+                                           20)))
+    for r in (0, SERVE_WORLD - 1):
+        hold("index_amortized", direct[r], ck.epoch_indices_amortized_ref(
+            N_C4, W, 0, 0, r, SERVE_WORLD, ns256, device=dev),
+             f"C4 world {SERVE_WORLD} rank {r}, the direct regen")
+    ck.reset_launches()
+    streams, rates = {}, {}
+    with IndexServer(c4, max_inflight=16) as srv:
+
+        def client(r):
+            with ServiceIndexClient(srv.address, rank=r,
+                                    batch=SERVE_BATCH) as c:
+                t0 = time.perf_counter()
+                parts = list(c.epoch_batches(0))
+                rates[r] = (len(parts), time.perf_counter() - t0)
+            streams[r] = np.concatenate(parts)
+
+        t0 = time.perf_counter()
+        run_threads([lambda r=r: client(r) for r in SERVE_RANKS])
+        all_s = time.perf_counter() - t0
+        got = take_launches()
+        regen_ms = list(srv.metrics.regen_timer.samples_ms)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the cached arrays are read-only
+            pinned = sum(bool(torch.from_numpy(a).is_pinned())
+                         for a in srv._cache.values())
+        check(pinned == 0, f"the server caches {pinned} page-locked arrays")
+        # a reconnect of rank 0 replays from the cache: GET_BATCH on the
+        # request-reply path (lookahead 1), each round trip timed
+        rtt = []
+        deadline = time.monotonic() + 10.0
+        while True:  # the first rank-0 client's lease frees on its close
+            c = ServiceIndexClient(srv.address, rank=0, batch=SERVE_BATCH,
+                                   lookahead=1)
+            try:
+                c.heartbeat()
+                break
+            except ServiceError as exc:
+                c.close()
+                check(exc.code == "rank_taken"
+                      and time.monotonic() < deadline,
+                      f"rank 0 could not reconnect: {exc}")
+                time.sleep(0.01)
+        with c:
+            it = c.epoch_batches(0)
+            parts = []
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    parts.append(next(it))
+                except StopIteration:
+                    break
+                rtt.append((time.perf_counter() - t0) * 1e6)
+        replay = take_launches()
+    for r in SERVE_RANKS:
+        check(np.array_equal(streams[r], direct[r])
+              and streams[r].dtype == direct[r].dtype,
+              f"served C4 rank {r} differs from its direct regen")
+    check(np.array_equal(np.concatenate(parts), direct[0]),
+          "the replayed rank 0 differs")
+    check(got == {"index_amortized": len(SERVE_RANKS)},
+          f"served C4: launches {got}, not one index_amortized a rank")
+    check(replay == {}, f"the cache replay launched {replay}")
+    nbytes = direct[0].nbytes
+    print(f"service C4 1B/8192 world {SERVE_WORLD}, ranks {SERVE_RANKS}, "
+          f"batch {SERVE_BATCH}: every stream ({len(direct[0])} indices) "
+          f"byte-equal to a direct epoch_indices_cuda readback, ranks 0 and "
+          f"{SERVE_WORLD - 1} to the plain law on the card; launches "
+          f"{json.dumps(got)}; every cached epoch in pageable memory; rank "
+          f"0 reconnected: replayed from the cache, "
+          f"launches {json.dumps(replay)} | {card}")
+    print(f"time service epoch_regen_ms (server, kernel + readback, host "
+          f"wall) over {len(regen_ms)} regens: p50 {pct(regen_ms, 50):.4f} "
+          f"p99 {pct(regen_ms, 99):.4f} ms; a direct rank_indices of the "
+          f"same spec: median {direct_ms:.4f} ms | {card}")
+    print(f"time service GET_BATCH round trip (lookahead 1, cache hit, "
+          f"{SERVE_BATCH} int32): p50 {pct(rtt, 50):.1f} p99 "
+          f"{pct(rtt, 99):.1f} us over {len(rtt)} | {card}")
+    for r in SERVE_RANKS:
+        nb, s = rates[r]
+        print(f"time service client rank {r}: {nb / s:.1f} batches/s, "
+              f"{nbytes / s / 1e6:.1f} MB/s ({s:.3f} s for the epoch)")
+    print(f"time service 8 clients together: "
+          f"{sum(n for n, _ in rates.values()) / all_s:.1f} batches/s, "
+          f"{nbytes * len(SERVE_RANKS) / all_s / 1e6:.1f} MB/s "
+          f"({all_s:.3f} s) | {card}")
+
+    # ---- case 2: one multi-tenant daemon, three tenants
+    mspec = pt.MixtureSpec(M1_SOURCES, M1_WEIGHTS, windows=W)
+    m1 = pt.PartialShuffleSpec.mixture(mspec, world=SERVE_WORLD)
+    w1 = pt.SamplingSpec.weighted(M1_SOURCES, W1_WEIGHTS,
+                                  weight_kind="per_sample",
+                                  epoch_samples=N_C4, window=W,
+                                  world=SERVE_WORLD)
+    tenants = (("C4", c4, "index_amortized"), ("M1", m1, "mixture_fused"),
+               ("W1", w1, "weighted_stream"))
+    ranks2 = (0, SERVE_WORLD - 1)
+    ck.reset_launches()
+    got2 = {}
+    with IndexServer(c4, multi_tenant=True, max_inflight=16) as srv:
+
+        def tenant_client(label, spec, r):
+            with ServiceIndexClient(srv.address, rank=r, batch=SERVE_BATCH,
+                                    spec=spec) as c:
+                got2[label, r] = c.epoch_indices(0)
+
+        t0 = time.perf_counter()
+        run_threads([lambda a=a, s=s, r=r: tenant_client(a, s, r)
+                     for a, s, _ in tenants for r in ranks2])
+        mt_s = time.perf_counter() - t0
+        launched = take_launches()
+        n_tenants = len(srv.tenants())
+        queue = srv.metrics.report()["histograms"].get("regen_queue_ms", {})
+    for label, spec, kernel in tenants:
+        for r in ranks2:
+            want = direct[r] if label == "C4" else spec.rank_indices(0, r)
+            check(np.array_equal(got2[label, r], want),
+                  f"tenant {label} rank {r} differs from its direct regen")
+    ck.reset_launches()  # the references' launches are not the path's
+    # each tenant's served stream against its kernel's plain version
+    _t, ns_m1, total_m1 = M.mixture_epoch_sizes(mspec, None, SERVE_WORLD,
+                                                False)
+    table_w1 = A.build_alias_table(W1_WEIGHTS, "per_sample", M1_SOURCES)
+    for r in ranks2:
+        hold("mixture_fused", got2["M1", r], ck.mixture_fused_ref(
+            None, mspec, 0, 0, rank=r, world=SERVE_WORLD, num_samples=ns_m1,
+            wide_pos=total_m1 + mspec.block > core.INT32_MAX, device=dev),
+             f"tenant M1 world {SERVE_WORLD} rank {r}, served")
+        hold("weighted_stream", got2["W1", r], ck.weighted_stream_ref(
+            table_w1, M1_SOURCES, 0, 0, epoch_samples=N_C4, rank=r,
+            world=SERVE_WORLD, num_samples=w1.num_samples(), window=W,
+            device=dev), f"tenant W1 world {SERVE_WORLD} rank {r}, served")
+    torch.cuda.empty_cache()
+    want2 = {k: len(ranks2) for _, _, k in tenants}
+    check(launched == want2 and n_tenants == len(tenants),
+          f"multi-tenant: launches {launched}, {n_tenants} tenants")
+    print(f"service multi-tenant: {n_tenants} tenants (C4, M1, W1 at world "
+          f"{SERVE_WORLD}), ranks {ranks2} each, concurrent regens under the "
+          f"fair-share scheduler (queue {queue.get('count', 0)} slots): "
+          f"streams bit-exact to the direct regens and, for M1 and W1, to "
+          f"mixture_fused's and weighted_stream's plain versions on the "
+          f"card (max_abs_err 0), launches {json.dumps(launched)} "
+          f"({mt_s:.3f} s) | {card}")
+
+    # ---- case 3: elastic, ImageNet world 8 -> 16 after a third
+    inet = pt.PartialShuffleSpec.plain(N_IMAGENET, window=W,
+                                       world=ELASTIC_WORLDS[0])
+    old_w, new_w = ELASTIC_WORLDS
+    ns8, _ = core.shard_sizes(N_IMAGENET, old_w, False)
+    third = -(-ns8 // 3 // SERVE_BATCH)  # batches before the reshard
+    ck.reset_launches()
+    delivered = {}
+    hit = threading.Barrier(old_w)
+    go = threading.Barrier(old_w)
+    with IndexServer(inet, max_inflight=16) as srv:
+
+        def old_rank(r):
+            with ServiceIndexClient(srv.address, rank=r, batch=SERVE_BATCH,
+                                    reconnect_timeout=60.0) as c:
+                it = c.epoch_batches(0)
+                got = [next(it) for _ in range(third)]
+                hit.wait(60.0)
+                if r == 0:
+                    check(c.reshard(new_w), "the reshard was refused")
+                go.wait(60.0)
+                got += list(it)
+                check(c.rank == r, f"old rank {r} came back as {c.rank}")
+                delivered[r] = np.concatenate(got)
+
+        def joiner(j):
+            deadline = time.monotonic() + 60.0
+            while srv.generation < 1:  # joiners dial after the commit
+                check(time.monotonic() < deadline, "the reshard never "
+                      "committed")
+                time.sleep(0.01)
+            with ServiceIndexClient(srv.address, rank=None,
+                                    batch=SERVE_BATCH,
+                                    reconnect_timeout=60.0) as c:
+                parts = list(c.epoch_batches(0))
+                check(c.rank is not None and old_w <= c.rank < new_w,
+                      f"joiner {j} was given rank {c.rank}")
+                delivered[c.rank] = (np.concatenate(parts) if parts
+                                     else np.empty(0, np.int32))
+
+        t0 = time.perf_counter()
+        run_threads([lambda r=r: old_rank(r) for r in range(old_w)]
+                    + [lambda j=j: joiner(j) for j in range(new_w - old_w)])
+        el_s = time.perf_counter() - t0
+        state = srv._state_dict()
+        launched = take_launches()
+    check(state["generation"] == 1 and len(state["layers"]) == 1
+          and int(state["layers"][0][0]) == old_w,
+          f"elastic: generation {state['generation']}, layers "
+          f"{state['layers']}")
+    consumed = int(state["layers"][0][1])
+    check(sorted(delivered) == list(range(new_w)),
+          f"elastic: streams of ranks {sorted(delivered)}")
+    stream = np.empty(ns8 * old_w, dtype=np.int64)
+    for r in range(old_w):
+        stream[r::old_w] = inet.rank_indices(0, r)
+    ck.reset_launches()
+    # each old rank's stream up to the barrier, then each new rank's
+    # remainder, against the plain laws on the card
+    chain, _rem, ns_el = core.elastic_chain(N_IMAGENET,
+                                            [(old_w, consumed)], new_w)
+    for r in range(new_w):
+        tail = delivered[r]
+        if r < old_w:
+            hold("index_amortized", tail[:consumed],
+                 ck.epoch_indices_amortized_ref(
+                     N_IMAGENET, W, 0, 0, r, old_w, ns8,
+                     device=dev)[:consumed],
+                 f"ImageNet world {old_w} rank {r} before the barrier")
+            tail = tail[consumed:]
+        hold("index_positions", tail, ck.index_positions_ref(
+            N_IMAGENET, W, 0, 0, rank=r, world=new_w, num_samples=ns_el,
+            chain=chain, device=dev),
+             f"ImageNet world {new_w} rank {r}, the remainder after "
+             f"{old_w} x {consumed}")
+    consumed_vals = np.concatenate([delivered[r][:consumed]
+                                    for r in range(old_w)]).astype(np.int64)
+    remainder_vals = np.concatenate(
+        [delivered[r][consumed:] for r in range(old_w)]
+        + [delivered[r] for r in range(old_w, new_w)]).astype(np.int64)
+    why = union_exactly_once(consumed_vals, remainder_vals, stream, old_w,
+                             consumed, new_w)
+    check(why == "", f"elastic ImageNet {old_w} -> {new_w}: {why}")
+    check(launched == {"index_amortized": old_w, "index_positions": new_w},
+          f"elastic: launches {launched}, not one index_amortized an old "
+          f"rank and one index_positions a remainder rank")
+    print(f"service elastic ImageNet 1,281,167/8192 world {old_w} -> "
+          f"{new_w} after {consumed} samples a rank (~a third): every rank "
+          f"finished, each old rank's stream to the barrier and each new "
+          f"rank's remainder equal to the plain laws on the card "
+          f"(index_amortized, index_positions; max_abs_err 0), the union "
+          f"the epoch exactly once (conftest's law, strided), launches {json.dumps(launched)} ({el_s:.3f} s) | "
+          f"{card}")
+
+    # ---- case 4: failover to a standby twin
+    ck.reset_launches()
+    standby = IndexServer(c4, role="standby", repl_feed_timeout=0.25)
+    standby.start()
+    primary = IndexServer(c4, standby=standby.address,
+                          repl_feed_timeout=0.25, max_inflight=16)
+    primary.start()
+    ranks4 = range(FAILOVER_RANKS)
+    fo = {}
+    streamed = threading.Barrier(FAILOVER_RANKS + 1)
+    killed = threading.Barrier(FAILOVER_RANKS + 1)
+
+    def fo_client(r):
+        with ServiceIndexClient(primary.address, rank=r, batch=SERVE_BATCH,
+                                spec=c4, backoff_base=0.01,
+                                reconnect_timeout=2.0) as c:
+            it = c.epoch_batches(0)
+            got = [next(it) for _ in range(FAILOVER_BATCHES)]
+            streamed.wait(60.0)
+            killed.wait(60.0)
+            first = None
+            for arr in it:
+                got.append(arr)
+                if first is None and c.metrics.report()["counters"].get(
+                        "failovers", 0):
+                    first = time.perf_counter()  # served by the standby
+            fo[r] = (np.concatenate(got), first,
+                     c.metrics.report()["counters"])
+
+    try:
+        threads = [threading.Thread(target=fo_client, args=(r,))
+                   for r in ranks4]
+        for t in threads:
+            t.start()
+        streamed.wait(60.0)
+        deadline = time.monotonic() + 30.0
+        while not (primary._shipper is not None
+                   and primary._shipper.synced.is_set()
+                   and standby._applied_lsn >= primary._repl_log.lsn):
+            check(time.monotonic() < deadline, "the standby never synced")
+            time.sleep(0.01)
+        t_kill = time.perf_counter()
+        primary.kill()
+        killed.wait(60.0)
+        for t in threads:
+            t.join(120.0)
+            check(not t.is_alive(), "a failover client hung")
+        promoted = standby.role
+    finally:
+        primary.kill()
+        standby.stop()
+    launched = take_launches()
+    check(promoted == "primary", "the standby was not promoted")
+    for r in ranks4:
+        s, _, counters = fo.get(r, (None, 0, {}))
+        check(s is not None and np.array_equal(s, direct[r]),
+              f"failover rank {r}: the stream has a gap or a duplicate")
+        check(counters.get("failovers", 0) >= 1
+              and counters.get("degraded_mode", 0) == 0,
+              f"failover rank {r}: counters {counters}")
+    failover_ms = (min(f for _, f, _ in fo.values() if f is not None)
+                   - t_kill) * 1e3
+    check(launched == {"index_amortized": 2 * FAILOVER_RANKS},
+          f"failover: launches {launched}")
+    print(f"service failover C4 world {SERVE_WORLD}, ranks 0..."
+          f"{FAILOVER_RANKS - 1}, primary killed after {FAILOVER_BATCHES} "
+          f"batches: every stream bit-identical to case 1, no gap, no "
+          f"duplicate, launches {json.dumps(launched)} (each rank once on "
+          f"each server) | {card}")
+    print(f"time service failover, the kill to the first batch served by "
+          f"the standby: {failover_ms:.1f} ms (client reconnect_timeout "
+          f"2.0 s, feed timeout 0.25 s) | {card}")
+
+    # ---- case 5: capability mode (seeds, not indices)
+    secret = b"chip-smoke-deployment-secret"
+    real_recv = P._recv_exact
+    wire = {"bytes": 0}
+
+    def counting_recv(sock, n):
+        wire["bytes"] += n
+        return real_recv(sock, n)
+
+    def index_bytes_of(fn):
+        wire["bytes"] = 0
+        frames = []
+        real_msg = P.recv_msg
+
+        def counting_msg(sock, **kw):
+            msg, header, payload = real_msg(sock, **kw)
+            if msg == P.MSG_BATCH:
+                frames.append(len(payload))
+            return msg, header, payload
+
+        P._recv_exact, P.recv_msg = counting_recv, counting_msg
+        try:
+            out = fn()
+        finally:
+            P._recv_exact, P.recv_msg = real_recv, real_msg
+        return out, wire["bytes"], sum(frames)
+
+    ck.reset_launches()
+    with IndexServer(c4, capability_secret=secret) as srv:
+        with ServiceIndexClient(srv.address, rank=0, batch=SERVE_BATCH,
+                                spec=c4, capability_secret=secret) as c:
+            cap, cap_wire, cap_idx = index_bytes_of(
+                lambda: c.capability_epoch_indices(0))
+        cap_launched = take_launches()
+        # the server regenerates the rank once at issuance (the grant's
+        # total); the rest is the client's regen
+        issue_regens = srv.metrics.regen_timer.count
+        with ServiceIndexClient(srv.address, rank=1, batch=SERVE_BATCH) as c:
+            served1, srv_wire, srv_idx = index_bytes_of(
+                lambda: c.epoch_indices(0))
+        take_launches()
+    check(np.array_equal(cap, direct[0]),
+          "the capability stream differs from case 1's")
+    check(np.array_equal(served1, direct[1]), "served rank 1 differs")
+    check(cap_idx == 0, f"capability mode moved {cap_idx} index bytes")
+    check(issue_regens == 1 and cap_launched == {"index_amortized": 2},
+          f"capability: launches {cap_launched} with {issue_regens} "
+          f"server regens, not one at issuance and one for the client")
+    print(f"service capability C4 world {SERVE_WORLD} rank 0: stream equal "
+          f"to case 1's; launches {json.dumps(cap_launched)}: one at the "
+          f"server's issuance (the grant's total), one the client's regen "
+          f"on the card; wire bytes (both directions) "
+          f"{cap_wire} with {cap_idx} index bytes, against {srv_wire} "
+          f"({srv_idx} index bytes) served for rank 1 | {card}")
+
+    # ---- case 6: HostDataLoader served, then degraded to a local regen
+    label, rows, shape, dtype, world, batch, _, stall_steps = T_CASES[0]
+    t0 = time.perf_counter()
+    data = pattern_rows(rows, shape, dtype)
+    fill_s = time.perf_counter() - t0
+    t1 = pt.PartialShuffleSpec.plain(rows, window=W, world=world)
+    rank6 = 3 % world
+    cycles = int(5e-3 * max_sm_mhz * 1e6)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    ids = {e: torch.from_numpy(t1.rank_indices(e, rank6).astype(
+        np.int32)).to(dev) for e in (0, 1)}
+    ck.reset_launches()
+    stall = {}
+    with IndexServer(t1) as srv:
+        for mode in ("local", "served"):
+            client = (ServiceIndexClient(srv.address, rank=rank6,
+                                         batch=SERVE_BATCH)
+                      if mode == "served" else None)
+            ld = pt.HostDataLoader(data, window=W, batch=batch, rank=rank6,
+                                   world=world, depth=2,
+                                   boundary_prefetch=False,
+                                   index_client=client)
+            it = ld.epoch(0)
+            probe = StallProbe(it)
+            gen = iter(probe)
+            for s, b in enumerate(gen):
+                bad += pattern_errors(b, ids[0][s * batch:(s + 1) * batch])
+                torch.cuda._sleep(cycles)
+                torch.cuda.current_stream().synchronize()
+                if s + 1 == stall_steps:
+                    break
+            gen.close()
+            it.close()
+            stall[mode] = probe.report()
+            ld.close()
+            if client is not None:
+                client.close()
+        served_launched = take_launches()
+        # the degrade: the served epoch 0 runs on after the daemon stops,
+        # and epoch 1 is regenerated locally on the card
+        T.reset()
+        T.configure(enabled=True)
+        client = ServiceIndexClient(srv.address, rank=rank6,
+                                    batch=SERVE_BATCH, backoff_base=0.01,
+                                    reconnect_timeout=1.0)
+        ld = pt.HostDataLoader(data, window=W, batch=batch, rank=rank6,
+                               world=world, depth=2, boundary_prefetch=False,
+                               index_client=client, degraded_fallback=True)
+        it = ld.epoch(0)
+        steps0 = 0
+        for s, b in enumerate(it):
+            bad += pattern_errors(b, ids[0][s * batch:(s + 1) * batch])
+            steps0 += 1
+            if s + 1 == stall_steps:
+                srv.stop()  # mid-epoch: the epoch's indices are in hand
+            if s + 1 == 2 * stall_steps:
+                break
+        it.close()
+        before_degrade = take_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        steps1 = 0
+        it = ld.epoch(1)
+        for s, b in enumerate(it):
+            bad += pattern_errors(b, ids[1][s * batch:(s + 1) * batch])
+            steps1 += 1
+            if s + 1 == stall_steps:
+                break
+        it.close()
+    degraded_launched = take_launches()
+    events = [ev["name"] for sp in T.snapshot() if sp.get("kind") == "span"
+              for ev in sp.get("events", ())]
+    T.configure(enabled=False)
+    counters = client.metrics.report()["counters"]
+    ld.close()
+    client.close()
+    errors6 = int(bad)
+    check(errors6 == 0, f"served loader: {errors6} bytes break the pattern")
+    check(served_launched == {"index_amortized": 2},
+          f"served loader: launches {served_launched} (the local loader's "
+          f"regen and the server's, one each)")
+    check(before_degrade == {} and degraded_launched == {
+        "index_amortized": 1}, f"degrade: launches {before_degrade} before, "
+          f"{degraded_launched} for the local regen")
+    check(ld.degraded and counters.get("degraded_mode", 0) == 1
+          and "degraded_fallback" in events
+          and any("unavailable" in str(w.message) for w in caught),
+          f"degrade not recorded: counters {counters}, events {events}")
+    print(f"service loader {label}: {rows} rows ({fill_s:.2f} s to fill), "
+          f"world {world} rank {rank6}, batch {batch}, depth 2 behind the "
+          f"5 ms synthetic step, {stall_steps} steps: stall local "
+          f"{stall['local']['stall_pct']:.3f} % / served "
+          f"{stall['served']['stall_pct']:.3f} % | {card}")
+    print(f"service loader degrade: daemon stopped after {stall_steps} of "
+          f"epoch 0's steps ({steps0} served, all bit-identical), epoch 1 "
+          f"regenerated locally on the card ({steps1} steps checked): "
+          f"launches {json.dumps(degraded_launched)}, degraded_mode "
+          f"{counters.get('degraded_mode', 0)}, event degraded_fallback "
+          f"recorded; every batch's rows checked: {errors6} bytes wrong | "
+          f"{card}")
+    del data
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return launches20, errs
+
+
 def main() -> None:
     import torch
 
@@ -2305,6 +2938,20 @@ def main() -> None:
         ck.build()
         print(f"build: {time.perf_counter() - t0:.2f} s")
         launches, errs = capability_phase(
+            card, float(nvidia_smi("clocks.max.sm").split()[0]))
+        print(json.dumps({"launches": launches, "errors": errs}))
+        return
+    if sys.argv[1:2] == ["--service"]:
+        from partiallyshuffledistributedsampler_tpu_torch.ops import (
+            cuda_kernel as ck,
+        )
+
+        card = nvidia_smi("name,power.limit")
+        print(card)
+        t0 = time.perf_counter()
+        ck.build()
+        print(f"build: {time.perf_counter() - t0:.2f} s")
+        launches, errs = service_phase(
             card, float(nvidia_smi("clocks.max.sm").split()[0]))
         print(json.dumps({"launches": launches, "errors": errs}))
         return
@@ -3465,6 +4112,18 @@ def main() -> None:
               f"kernel {name} was not launched on the slice-11 main path")
         stats[name]["err"] = max(stats[name]["err"], errs19[name])
 
+    # ------------------------------------------- slice-12 main path
+    # 20: the index service on the card (counters reset around each
+    # case's servers and clients inside; launches20 sums them)
+    launches20, errs20 = service_phase(card, max_sm_mhz)
+    print(f"kernels (slice-12 main path): {json.dumps(launches20)}")
+    for name in SLICE12:
+        check(launches20[name] > 0,
+              f"kernel {name} was not launched on the slice-12 main path")
+        check(name in errs20, f"kernel {name} of the slice-12 main path "
+              f"was not held against its plain version")
+        stats[name]["err"] = max(stats[name]["err"], errs20[name])
+
     # ---------------------------------------------------------------- 6
     floor_ms = launch_floor_ms(max_sm_mhz)
     print(f"launch floor (empty kernel, back to back): {floor_ms:.4f} ms | "
@@ -3989,7 +4648,7 @@ def main() -> None:
             # the count over the main paths' runs
             "launches": sum(run.get(name, 0) for run in (
                 launches, launches2, launches3, launches3b, launches4,
-                launches8, launches9, launches10, launches19)),
+                launches8, launches9, launches10, launches19, launches20)),
             "max_abs_err": stats[name]["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

@@ -25,7 +25,10 @@ package's names, wire bytes and environment variables: signed epoch
 capabilities and the membership-trail replay (``capability/``), fault
 injection (``faults/``), tracing and metrics export (``telemetry/``,
 ``utils/metrics.py``), the lock-order sanitizer (``analysis/``), retry
-policies and sampler-state files (``utils/``).
+policies and sampler-state files (``utils/``).  The index service
+(``service/``, ``tenancy/``, ``durability/``) serves each rank's stream
+from one daemon that regenerates on the card, to many clients, with the
+JAX package's frames, WAL and snapshots byte for byte.
 """
 
 from .ops import (  # noqa: F401

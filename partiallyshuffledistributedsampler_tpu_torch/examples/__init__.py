@@ -5,5 +5,8 @@
 slice and a ViT), ``llama3_10b_index`` (the 10B-sample index space by
 random access, a rank's whole epoch, reseeds and the pretrain mixture) and
 ``webdataset_shards`` (the shard-index stream of tar shards, expanded on
-the card).  Each runs on the card and takes ``--cpu`` to run on the host
+the card), ``index_service`` (a daemon that regenerates on the card feeding
+served loaders, then a crash and a restart from its snapshot) and
+``multi_tenant`` (one daemon hosting two jobs: namespaces, admission
+quotas, the fair-share regen queue).  Each runs on the card and takes ``--cpu`` to run on the host
 instead."""

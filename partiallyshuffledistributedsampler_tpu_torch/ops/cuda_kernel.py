@@ -91,6 +91,7 @@ import subprocess
 import numpy as np
 import torch
 
+from ..analysis.lockorder import new_lock
 from . import core, fastdiv, mixture, shard
 
 _CSRC = os.path.join(
@@ -119,7 +120,8 @@ STAGE_WORDS_CAP = 12288
 #: lost at 974 (``chip_smoke.py``; PERF.md §6)
 FOLD_WORDS_CAP = 576
 
-#: kernel launches per wrapper (reset with ``reset_launches``)
+#: kernel launches per wrapper (reset with ``reset_launches``; a wrapper
+#: counts through ``_count``)
 launches = {"index_general": 0, "index_amortized": 0,
             "index_general_wide": 0, "index_amortized_wide": 0,
             "index_positions": 0, "index_positions_wide": 0,
@@ -128,6 +130,10 @@ launches = {"index_general": 0, "index_amortized": 0,
             "weighted_stream": 0, "weighted_stream_wide": 0}
 
 _libs: dict = {}
+#: guards ``launches``, the builds and ``_libs``: an index server regenerates
+#: on several handler threads at once, and two threads of one process that
+#: built together would write one temporary file
+_lock = new_lock("ops.cuda_kernel")
 #: the compiler's output of the builds this process made ("" if prebuilt)
 build_log = ""
 
@@ -148,8 +154,14 @@ def require_cuda() -> None:
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def _count(name: str) -> None:
+    with _lock:
+        launches[name] += 1
 
 
 def _nvcc() -> str:
@@ -182,7 +194,13 @@ def build() -> dict:
     """Compile every library whose sources have no build yet, one ``nvcc``
     per source, all started together; return ``{name: .so path}``.  Each
     library is written under a temporary name and renamed, so concurrent
-    builds never load a half-written file."""
+    builds never load a half-written file; the threads of one process
+    build one at a time."""
+    with _lock:
+        return _build()
+
+
+def _build() -> dict:
     global build_log
     paths = {name: library_path(name) for name in _SOURCES}
     todo = {name: so for name, so in paths.items() if not os.path.exists(so)}
@@ -212,8 +230,13 @@ def build() -> dict:
 
 
 def _load(name: str) -> ctypes.CDLL:
+    with _lock:
+        return _load_locked(name)
+
+
+def _load_locked(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        lib = ctypes.CDLL(build()[name])
+        lib = ctypes.CDLL(_build()[name])
         u64, u32 = ctypes.c_uint64, ctypes.c_uint32
         i32, ptr = ctypes.c_int, ctypes.c_void_p
         keys = [u32, u32, u32, ptr]  # seed_lo, seed_hi, epoch, seeds
@@ -436,7 +459,7 @@ def _general(wide: bool, n: int, window: int, seed, epoch, rank: int,
     lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     fn = lib.psds_index_general_wide if wide else lib.psds_index_general
-    launches[name] += 1
+    _count(name)
     _check(name, fn(
         out.data_ptr(), n, window, world, num_samples, rank, lo, hi, ep,
         seeds, int(bool(shuffle)), int(bool(order_windows)),
@@ -501,7 +524,7 @@ def _amortized(wide: bool, n: int, window: int, seed, epoch, rank: int,
     lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     fn = lib.psds_index_amortized_wide if wide else lib.psds_index_amortized
-    launches[name] += 1
+    _count(name)
     _check(name, fn(
         out.data_ptr(), n, window, world, num_samples, rank, lo, hi, ep,
         seeds, int(bool(order_windows)), rounds, stream,
@@ -719,7 +742,7 @@ def _positions(wide: bool, n: int, window: int, seed, epoch, *, positions,
     lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     fn = lib.psds_index_positions_wide if wide else lib.psds_index_positions
-    launches[name] += 1
+    _count(name)
     _check(name, fn(
         out.data_ptr(), None if positions is None else p.data_ptr(), lanes,
         n, window, world, rank, layers, depth, *first, lo, hi, ep, seeds,
@@ -871,7 +894,7 @@ def mixture_source_keys(spec, seed, epoch, *,
                        device=src.device)
     lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, keys.device)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
-    launches["mixture_source_keys"] += 1
+    _count("mixture_source_keys")
     _check("mixture_source_keys", lib.psds_mixture_source_keys(
         keys.data_ptr(), src.data_ptr(), spec.num_sources, rounds, lo, hi,
         ep, seeds, stream,
@@ -991,7 +1014,7 @@ def mixture_fused(keys, spec, seed, epoch, *, rank=None, world=None,
     lib = _load("mixture")
     pattern, prefix, src = mixture_tables(spec, out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    launches["mixture_fused"] += 1
+    _count("mixture_fused")
     _check("mixture_fused", lib.psds_mixture_fused(
         out.data_ptr(), None if positions is None else positions.data_ptr(),
         lanes, rank, world, int(partition == "strided"), spec.block,
@@ -1043,7 +1066,7 @@ def shard_row_keys(sids: torch.Tensor, tables, seed, epoch, *, full: bool,
     lib = _load("shard")
     lo, hi, ep, seeds = _launch_keys(seed, epoch, triple, sids.device)
     stream = torch.cuda.current_stream(sids.device).cuda_stream
-    launches["shard_row_keys"] += 1
+    _count("shard_row_keys")
     _check("shard_row_keys", lib.psds_shard_row_keys(
         rowtab.data_ptr(), None if m_of is None else m_of.data_ptr(),
         sids.data_ptr(), rows, tables.dev_sizes.data_ptr(), w, int(full),
@@ -1094,7 +1117,7 @@ def shard_expand(rowtab, sids: torch.Tensor, tables,
     w_magic = fastdiv.magic(max(w, 1))
     lib = _load("shard")
     stream = torch.cuda.current_stream(sids.device).cuda_stream
-    launches["shard_expand"] += 1
+    _count("shard_expand")
     _check("shard_expand", lib.psds_shard_expand(
         out.data_ptr(), sids.data_ptr(), tables.dev_offsets.data_ptr(),
         None if ends is None else ends.data_ptr(),
@@ -1264,7 +1287,7 @@ def _weighted(wide: bool, table, source_sizes, seed, epoch, *,
     lib = _load("sampling")
     stream = torch.cuda.current_stream(out.device).cuda_stream
     fn = lib.psds_weighted_stream_wide if wide else lib.psds_weighted_stream
-    launches[name] += 1
+    _count(name)
     _check(name, fn(
         out.data_ptr(), None if p is None else p.data_ptr(), lanes,
         tab.data_ptr(), len(sizes), int(len(sizes) <= STAGE_COLS), *first,

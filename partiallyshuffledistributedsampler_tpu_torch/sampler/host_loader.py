@@ -10,7 +10,7 @@ host→device copy hide behind the consumer's compute — the overlap
 DataLoader workers buy, without processes, pickling, or a collate
 function.
 
-Every local stream of the JAX package's loader rides through it:
+Every stream of the JAX package's loader rides through it:
 
 * the single-source §3/§4 stream (default),
 * the weighted **mixture** stream (``mixture=MixtureSpec(...)``, SPEC.md
@@ -18,7 +18,9 @@ Every local stream of the JAX package's loader rides through it:
 * the **shard-index** stream (``shard_sizes=[...]``, SPEC.md §7),
 * the **elastic remainder** epoch after a world-size change
   (``epoch(e, layers=[(old_world, consumed), ...])``, SPEC.md §6),
-* the moving-horizon stream (``streaming=True, horizon=H``).
+* the moving-horizon stream (``streaming=True, horizon=H``),
+* and each of them **served** by an index daemon (``index_client=``,
+  ``service/``), with capability mode and a degraded local fallback.
 
 The epoch's indices come from :class:`~..service.spec.PartialShuffleSpec`
 on ``index_backend`` — on 'cuda' the hand-written kernels, read back once
@@ -43,6 +45,7 @@ import contextlib
 import queue
 import threading
 import time
+import warnings
 from typing import Iterator, Optional
 
 import numpy as np
@@ -53,6 +56,9 @@ from ..analysis.lockorder import new_lock
 from ..ops import core, ensure_index_backend, resolve_host_backend
 from ..ops.cuda_kernel import require_cuda
 from ..service.spec import PartialShuffleSpec
+from ..telemetry import NULL_SPAN
+from ..telemetry import enabled as _tel_enabled
+from ..telemetry import span as _span
 from ..utils.autotune import pick_backend
 from ..utils.watchdog import StallError
 
@@ -121,10 +127,32 @@ class HostDataLoader:
         every appended sample.
     horizon: samples per horizon generation (required with
         ``streaming=True``, invalid otherwise).
-    index_client, capability_mode, degraded_fallback: the JAX loader's
-        served modes; they need the index service, which this package does
-        not have yet (ROADMAP.md, Queue A item 7), and raise
-        ``NotImplementedError``.
+    index_client: a ``service.ServiceIndexClient`` — fetch the epoch index
+        stream from an index-serving daemon (of either package) instead of
+        regenerating it locally (docs/SERVICE.md).  The stream is
+        bit-identical to the local path (the daemon evaluates the same
+        ``PartialShuffleSpec`` wire form this loader builds), so
+        checkpoints interoperate.  Explicit elastic ``layers`` raise on
+        this path: there the world change is server-driven
+        (docs/RESILIENCE.md "Elastic membership"), and the client rides
+        through a reshard while this loader keeps serving batches.
+    degraded_fallback: when the daemon stays unreachable past the client's
+        ``reconnect_timeout``, compute the epoch locally from the same spec
+        on ``index_backend`` (on 'cuda' the kernels) instead of failing the
+        epoch; after a reshard the fallback composes from the client's
+        adopted membership.  Entering degraded mode warns once and counts
+        ``degraded_mode`` on the client's metrics; every
+        ``reattach_interval`` seconds a later epoch probes the daemon and
+        re-attaches when it returns.  False fails on an unavailable
+        daemon.
+    reattach_interval: minimum seconds between re-attach probes while
+        degraded (each probe costs one TCP dial).
+    capability_mode: serve seeds, not indices (docs/CAPABILITY.md): on the
+        service path fetch one signed epoch capability per epoch and
+        regenerate the stream on ``index_backend`` — O(1) wire bytes per
+        rank per epoch, bit-identical.  Needs the client's
+        ``capability_secret``; a refused capability falls back to served
+        batches for that epoch with a warning.
 
     The sampler kwargs (shuffle/drop_last/order_windows/partition/rounds)
     pass through to the index law unchanged.
@@ -148,21 +176,15 @@ class HostDataLoader:
         shard_sizes=None,
         within_shard_shuffle=True,
         index_client=None,
-        degraded_fallback: bool = False,
-        capability_mode: bool = False,
+        degraded_fallback=True,
+        reattach_interval: float = 5.0,
         stall_timeout: Optional[float] = 30.0,
         boundary_prefetch: bool = True,
+        capability_mode: bool = False,
         streaming: bool = False,
         horizon: Optional[int] = None,
         **kwargs,
     ) -> None:
-        if (index_client is not None or capability_mode
-                or degraded_fallback):
-            raise NotImplementedError(
-                "index_client, capability_mode and degraded_fallback are "
-                "the served modes; they need the index service, which is "
-                "not ported to this package yet (ROADMAP.md, Queue A item 7)"
-            )
         if mixture is not None and shard_sizes is not None:
             raise ValueError(
                 "mixture and shard_sizes are mutually exclusive streams"
@@ -281,9 +303,16 @@ class HostDataLoader:
         self.drop_last_batch = bool(drop_last_batch)
         self.kwargs = kwargs
         self.num_samples = num_samples
+        self.index_client = index_client
+        self.capability_mode = bool(capability_mode)
+        self.degraded_fallback = bool(degraded_fallback)
+        self.reattach_interval = float(reattach_interval)
         self.stall_timeout = (
             None if stall_timeout is None else float(stall_timeout)
         )
+        #: True while serving locally because the index daemon is down
+        self.degraded = False
+        self._last_probe = float("-inf")
         self._dtypes = {k: _torch_dtype(k, v) for k, v in self.data.items()}
         self.device = torch.device(device)
         self._copy_stream = None
@@ -308,7 +337,7 @@ class HostDataLoader:
         self.boundary_prefetch = bool(boundary_prefetch)
         self._boundary_lock = new_lock("loader.boundary")
         self._boundary_thread: Optional[threading.Thread] = None
-        self._boundary_box = None  # (epoch, idx) or (epoch, None): error
+        self._boundary_box = None  # (epoch, generation, idx or None)
         self._idx_cache = None
         #: highest horizon generation served (streaming only): a bump is
         #: an epoch boundary for every cache — stale-horizon indices must
@@ -490,13 +519,15 @@ class HostDataLoader:
 
         def _work() -> None:
             F.fire("loader.boundary")
+            gen = None
             try:
                 idx = self._compute_epoch_indices(next_epoch, None)
                 idx.setflags(write=False)
+                gen = getattr(self.index_client, "generation", None)
             except Exception:  # lint: allow-broad-except(prefetch is advisory; the boundary recomputes in the foreground)
                 idx = None
             with self._boundary_lock:
-                self._boundary_box = (next_epoch, idx)
+                self._boundary_box = (next_epoch, gen, idx)
 
         t = threading.Thread(target=_work, daemon=False,
                              name="psds-boundary-prefetch")
@@ -505,12 +536,23 @@ class HostDataLoader:
 
     def _take_boundary(self, epoch: int) -> Optional[np.ndarray]:
         """Adopt the boundary worker's result for ``epoch``, or None when
-        it must be recomputed (wrong epoch, or the worker errored or is
-        still running past ``stall_timeout``)."""
+        it must be recomputed (wrong epoch, the worker errored or is still
+        running past ``stall_timeout``, or — on the service path — the
+        membership generation moved since the fetch, which re-partitions
+        the epoch)."""
         t = self._boundary_thread
         if t is not None:
             t.join(self.stall_timeout)
             if t.is_alive():
+                if self.index_client is not None:
+                    # the client is not a concurrent-use surface: a
+                    # foreground fetch alongside the wedged worker would
+                    # interleave on one socket
+                    raise StallError(
+                        "boundary prefetch made no progress past "
+                        f"stall_timeout={self.stall_timeout}",
+                        thread=t,
+                    )
                 return None  # local regen: recompute alongside it
             self._boundary_thread = None
         with self._boundary_lock:
@@ -519,9 +561,17 @@ class HostDataLoader:
             # an armed plan targets the FOREGROUND path's deterministic
             # draw sequence; adopting a pre-plan prefetch would skip it
             return None
-        if box is None or box[0] != epoch:
+        if box is None or box[0] != epoch or box[2] is None:
             return None
-        return box[1]
+        _, gen, idx = box
+        if self.index_client is not None:
+            try:
+                fresh = self.index_client.heartbeat()
+            except Exception:  # lint: allow-broad-except(freshness probe only; the foreground fetch surfaces real errors)
+                return None
+            if fresh != gen or self.index_client.generation != gen:
+                return None  # resharded since the fetch: stale partition
+        return idx
 
     def _regen_scope(self):
         """Where a regen runs: on 'cuda', the loader's regen device and a
@@ -535,6 +585,13 @@ class HostDataLoader:
         return scope
 
     def _compute_epoch_indices(self, epoch: int, layers) -> np.ndarray:
+        if self.index_client is not None:
+            if layers is not None:
+                raise ValueError(
+                    "elastic layers are a local-sampler feature; the index "
+                    "service path does not serve remainder epochs"
+                )
+            return self._served_indices(epoch)
         F.fire("loader.regen")
         # the shared stream description; §6 elastic remainder layers ride
         # the same surface for every stream kind
@@ -543,6 +600,113 @@ class HostDataLoader:
                 epoch, self.rank,
                 layers=None if layers is None else list(layers),
             )
+
+    def _served_indices(self, epoch: int) -> np.ndarray:
+        """The service path with graceful degradation (docs/RESILIENCE.md).
+
+        Healthy: fetch the epoch stream from the daemon.  A dead primary
+        with a hot standby is handled inside the client (transparent
+        failover, no degraded entry); only if every peer stays down past
+        the client's ``reconnect_timeout`` and ``degraded_fallback`` is on,
+        compute the stream locally from the same spec — bit-identical by
+        the fingerprint handshake — and keep training; while degraded,
+        probe the daemon at most every ``reattach_interval`` seconds and
+        re-attach when it answers."""
+        if _tel_enabled():
+            with _span("loader.serve_epoch", epoch=int(epoch),
+                       rank=self.rank) as sp:
+                return self._served_indices_impl(epoch, sp)
+        # tracing off: no span machinery on the serve path
+        return self._served_indices_impl(epoch, NULL_SPAN)
+
+    def _served_indices_impl(self, epoch: int, sp) -> np.ndarray:
+        from ..capability import CapabilityError
+        from ..service.client import FencedError, ServiceUnavailable
+
+        client = self.index_client
+        if self.degraded:
+            now = time.monotonic()
+            if now - self._last_probe < self.reattach_interval:
+                return self._local_indices(epoch)
+            self._last_probe = now
+            if not client.probe():
+                return self._local_indices(epoch)
+            self.degraded = False
+            client.metrics.inc("reattached", self.rank)
+            sp.event("reattached")
+        try:
+            if self.capability_mode:
+                try:
+                    with self._regen_scope():
+                        return np.asarray(client.capability_epoch_indices(
+                            epoch, spec=self.stream_spec))
+                except CapabilityError as exc:
+                    # fallback ladder (docs/CAPABILITY.md): a refused or
+                    # unverifiable capability drops to the served-batch
+                    # path for THIS epoch — loudly, never silently
+                    warnings.warn(
+                        f"capability path refused for epoch {epoch} "
+                        f"({exc}); falling back to served batches",
+                        RuntimeWarning,
+                        stacklevel=3,
+                    )
+                    sp.event("capability_fallback", error=str(exc))
+                    client.metrics.inc("capability_fallbacks", self.rank)
+            return np.asarray(client.epoch_indices(epoch))
+        except (ServiceUnavailable, FencedError) as exc:
+            # FencedError: every reachable peer lost a promotion race and
+            # no serving primary is attached — the same "both peers down"
+            if not self.degraded_fallback:
+                raise
+            warnings.warn(
+                f"index service unavailable ({exc}); serving epoch "
+                f"{epoch} from the local spec (bit-identical stream) "
+                "and probing for re-attach",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            sp.event("degraded_fallback", error=str(exc))
+            client.metrics.inc("degraded_mode", self.rank)
+            self.degraded = True
+            self._last_probe = time.monotonic()
+            return self._local_indices(epoch, after=exc)
+
+    def _local_indices(self, epoch: int, *, after=None) -> np.ndarray:
+        """Degraded-mode regen: evaluate the loader's own spec on
+        ``index_backend``.  Safe to substitute for the served stream
+        because the WELCOME handshake proved the daemon serves a spec with
+        this (world-stripped) fingerprint.  After a reshard the local
+        stream is composed from the client's adopted membership
+        (``client.local_epoch_indices``); a stale base-spec regen would
+        serve the wrong partition of the remainder.
+
+        ``after`` is the exception that forced this fallback (if any);
+        when it crossed a traced RPC, its span tag links the degraded
+        regen span to the RPC that failed (docs/OBSERVABILITY.md)."""
+        client = self.index_client
+        wire = getattr(client, "spec_wire", None)
+        if wire is not None:
+            served = PartialShuffleSpec.from_wire(
+                wire, backend=self.index_backend
+            ).fingerprint(include_world=False)
+            ours = self.stream_spec.fingerprint(include_world=False)
+            if served != ours:
+                raise RuntimeError(
+                    f"cannot degrade to local regen: daemon spec "
+                    f"fingerprint {served} != local {ours}"
+                )
+        link = getattr(after, "_psds_span", None)
+        attrs = {"failed_rpc": list(link)} if link else {}
+        with _span("loader.degraded_regen", epoch=int(epoch),
+                   rank=self.rank, **attrs):
+            F.fire("loader.regen")
+            with self._regen_scope():
+                if client is not None and getattr(client, "generation",
+                                                  0) > 0:
+                    return np.asarray(
+                        client.local_epoch_indices(self.stream_spec, epoch)
+                    )
+                return self.stream_spec.rank_indices(epoch, self.rank)
 
     # -------------------------------------------------------------- gather
     def _gather(self, sl: np.ndarray) -> dict:

@@ -67,3 +67,26 @@ def test_ported_config_examples_need_the_card_unless_asked(name):
     res = run_example(name, timeout=120)
     assert res.returncode != 0
     assert "CudaUnavailableError" in res.stderr
+
+
+@pytest.mark.parametrize("name,oks", [
+    ("index_service", ["phase 1, 4 ranks", "phase 2, 3000 indices",
+                       "index service end to end"]),
+    ("multi_tenant", ["phase 1, 2 jobs", "phase 2, the rank over quota",
+                      "phase 3", "multi-tenant service end to end"]),
+])
+def test_service_examples_run_on_the_host(name, oks):
+    """The JAX package's index-service and multi-tenant examples, ported:
+    a daemon on loopback, its regens on the host with ``--cpu``."""
+    res = run_example(name, "--cpu", timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("ok: ")]
+    for ok in oks:
+        assert any(ok in ln for ln in lines), (ok, res.stdout)
+
+
+@pytest.mark.parametrize("name", ["index_service", "multi_tenant"])
+def test_service_examples_need_the_card_unless_asked(name):
+    res = run_example(name, timeout=120)
+    assert res.returncode != 0
+    assert "CudaUnavailableError" in res.stderr

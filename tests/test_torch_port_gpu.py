@@ -1586,3 +1586,196 @@ def test_loader_faults_on_the_card():
     for e, got in ((1, first), (2, second)):
         want = jcpu.epoch_indices_np(100_000, 512, 0, e, 1, 4)
         np.testing.assert_array_equal(got.numpy(), want[:len(got)])
+
+
+# ---------------------------------------------- threads and the service
+def test_launch_counter_is_exact_under_threads():
+    """8 threads x 50 regens leave the counter at exactly 400: the
+    wrappers count under the module's lock (an index server regenerates
+    on several handler threads at once)."""
+    import sys
+    import threading
+
+    cuda.epoch_indices_cuda(5000, 512, 1, 0, 0, 2)  # built and loaded
+    ck.reset_launches()
+    errors = []
+
+    def regens():
+        try:
+            for e in range(50):
+                cuda.epoch_indices_cuda(5000, 512, 1, e, 1, 2)
+        except BaseException as exc:  # reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=regens) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    assert ck.launches["index_amortized"] == 400
+    assert sum(ck.launches.values()) == 400
+
+
+def test_cold_start_from_threads_builds_each_library_once(tmp_path,
+                                                          monkeypatch):
+    """8 threads reach a cold build directory at once: each library is
+    compiled by one nvcc and loaded once, and every thread's regen is
+    right."""
+    import os
+    import subprocess
+    import threading
+
+    monkeypatch.setattr(ck, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(ck, "_libs", {})
+    real_popen, compiled = subprocess.Popen, []
+
+    def popen(args, *a, **kw):
+        compiled.append(args[-1])
+        return real_popen(args, *a, **kw)
+
+    monkeypatch.setattr(ck.subprocess, "Popen", popen)
+    want = jcpu.epoch_indices_np(5000, 512, 3, 1, 0, 2)
+    got, errors = [], []
+
+    def regen():
+        try:
+            got.append(cuda.epoch_indices_cuda(5000, 512, 3, 1, 0,
+                                               2).cpu().numpy())
+        except BaseException as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=regen) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert sorted(compiled) == sorted(ck._SOURCES.values())
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        os.path.basename(ck.library_path(name)) for name in ck._SOURCES)
+    assert len(got) == 8 and all(np.array_equal(g, want) for g in got)
+
+
+def _service_specs(backend):
+    from partiallyshuffledistributedsampler_tpu_torch import (
+        MixtureSpec,
+        PartialShuffleSpec,
+        SamplingSpec,
+    )
+
+    return {
+        "plain": PartialShuffleSpec.plain(20_000, window=512, seed=5,
+                                          world=4, backend=backend),
+        "mixture": PartialShuffleSpec.mixture(
+            MixtureSpec([9000, 6000, 5000], [5, 3, 2], windows=256),
+            seed=5, world=4, backend=backend),
+        "shard": PartialShuffleSpec.shard(
+            np.arange(40, 140), window=8, seed=5, world=4, backend=backend),
+        "sampling": SamplingSpec.weighted(
+            (9000, 6000, 5000), (5, 1, 2), epoch_samples=16_384, window=256,
+            seed=5, world=4, backend=backend),
+    }
+
+
+def _serve(spec, ranks, epoch=1, **server_kw):
+    """Each rank's stream from an ``IndexServer`` of ``spec`` (a list:
+    the tenants of a multi-tenant daemon), ``{(mode, rank): stream}``, the
+    clients on threads of their own."""
+    import threading
+
+    from partiallyshuffledistributedsampler_tpu_torch.service import (
+        IndexServer,
+        ServiceIndexClient,
+    )
+
+    got, errors = {}, []
+    specs = spec if isinstance(spec, list) else [spec]
+    with IndexServer(specs[0], **server_kw) as srv:
+
+        def client(s, r):
+            try:
+                with ServiceIndexClient(srv.address, rank=r, batch=1000,
+                                        spec=s) as c:
+                    got[s.mode, r] = c.epoch_indices(epoch)
+            except BaseException as exc:  # reported below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=client, args=(s, r))
+                   for s in specs for r in ranks]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    return got
+
+
+@pytest.mark.parametrize("kind", ["plain", "mixture", "shard", "sampling"])
+def test_served_on_cuda_equals_served_on_cpu(kind):
+    """A server regenerating on the card serves the bytes a server on the
+    host serves, each (epoch, rank) one regen of the spec's kernels."""
+    on_card = _service_specs("cuda")[kind]
+    ck.reset_launches()
+    card = _serve(on_card, range(4))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ck.launches.items() if v}
+    host = _serve(_service_specs("cpu")[kind], range(4))
+    for key, want in host.items():
+        assert card[key].dtype == want.dtype
+        np.testing.assert_array_equal(card[key], want)
+    per_regen = {"plain": {"index_amortized": 1},
+                 "mixture": {"mixture_fused": 1},
+                 # the shard order's stream, then its expansion
+                 "shard": {"index_amortized": 1, "shard_row_keys": 1,
+                           "shard_expand": 1},
+                 "sampling": {"weighted_stream": 1}}[kind]
+    assert launched == {k: 4 * v for k, v in per_regen.items()}
+
+
+def test_a_server_on_cuda_caches_no_page_locked_memory():
+    """On the card each regen is read back into a pinned buffer; the
+    daemon's cache keeps a pageable copy of it, so no cached epoch stays
+    page-locked."""
+    import warnings
+
+    from partiallyshuffledistributedsampler_tpu_torch.service import (
+        IndexServer,
+        ServiceIndexClient,
+    )
+
+    spec = _service_specs("cuda")["plain"]
+    with IndexServer(spec) as srv:
+        for r in range(4):
+            with ServiceIndexClient(srv.address, rank=r, batch=1000) as c:
+                np.testing.assert_array_equal(c.epoch_indices(1),
+                                              spec.rank_indices(1, r))
+        cached = list(srv._cache.values())
+    assert len(cached) == 4
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the cached arrays are read-only
+        assert not any(torch.from_numpy(a).is_pinned() for a in cached)
+
+
+def test_two_tenants_regenerate_at_once_on_cuda():
+    """A multi-tenant daemon's two tenants regenerate on two handler
+    threads at once (the fair-share scheduler's two slots): the streams
+    equal the host's and every regen is counted."""
+    card_specs, host_specs = _service_specs("cuda"), _service_specs("cpu")
+    ck.reset_launches()
+    card = _serve([card_specs["plain"], card_specs["mixture"]], range(4),
+                  multi_tenant=True)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ck.launches.items() if v}
+    host = _serve([host_specs["plain"], host_specs["mixture"]], range(4),
+                  multi_tenant=True)
+    assert card.keys() == host.keys() and len(card) == 8
+    for key, want in host.items():
+        np.testing.assert_array_equal(card[key], want)
+    assert launched == {"index_amortized": 4, "mixture_fused": 4}

@@ -373,11 +373,14 @@ def test_port_refusals():
                                 device="cpu", **kw)
         assert loader.index_backend == "native"
         assert loader._auto_cost is None
-    for served in (dict(index_client=object()), dict(capability_mode=True),
-                   dict(degraded_fallback=True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            HostDataLoader(_data(), index_backend="cpu", device="cpu",
-                           **served, **kw)
+    # the served modes are accepted, with the JAX loader's defaults
+    loader = HostDataLoader(_data(), index_backend="cpu", device="cpu",
+                            index_client=object(), capability_mode=True,
+                            **kw)
+    assert loader.degraded_fallback is True
+    assert loader.reattach_interval == 5.0 and loader.degraded is False
+    with pytest.raises(ValueError, match="elastic layers"):
+        loader._compute_epoch_indices(0, [(2, 10)])
     # the card is the default on both sides, and there is none here
     with pytest.raises(CudaUnavailableError):
         HostDataLoader(_data(), device="cpu", **kw)

@@ -107,7 +107,7 @@ def host_kernels(host_libs, monkeypatch):
     test's own."""
     monkeypatch.setattr(ck, "_libs", {})
     monkeypatch.setattr(ck, "launches", dict.fromkeys(ck.launches, 0))
-    monkeypatch.setattr(ck, "build", lambda: dict(host_libs))
+    monkeypatch.setattr(ck, "_build", lambda: dict(host_libs))
     monkeypatch.setattr(ck, "device_kind", lambda device: "cuda")
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
