@@ -166,6 +166,32 @@ plain version and its bound.  Every failure exits non-zero.
   direct regen, the ``GET_BATCH`` round trip, batches/s and MB/s a client
   and together, the failover time, wire bytes, the stall, launches.  The
   phase alone: ``python3 chip_smoke.py --service``.
+* Slice 13, the sharded plane, federation and the autopilot (phase 21,
+  ``sharding_phase``): shards, standbys, routers, cells and clients as
+  threads of this process, every regen on specs with ``backend="cuda"``.
+  C4 1B / 8192 at world 256 over ``ShardPlane(n_shards=4, standby=True,
+  wal_dir=...)``: ranks 0, 63, 64, 127, 128, 191, 192, 255 dial the
+  router, each redirected to its shard and byte-equal to a direct regen,
+  one ``index_amortized`` an ``(epoch, rank)``, none on a cache replay,
+  ``set_epoch`` fanned out; the cross-shard reshard 256 -> 192 a third of
+  the way through an epoch over all 256 ranks (the union exactly once on
+  the card, one ``index_positions`` a remainder rank held against its
+  plain version); ``split_shard``, ``merge_shards`` and
+  ``migrate_ranks`` under 8 live clients, then a shard primary killed
+  under its standby; M1 and W1 attached as tenants (``mixture_fused``,
+  ``weighted_stream``); a two-cell ``Federation`` (2 shards a cell)
+  killed and promoted, a ``TrustBundle`` capability client, a live
+  ``migrate_tenant``; the ``Autopilot`` at the policy's defaults in its
+  predictive mode on a live plane (its card probe; under a hotspot a tune
+  a client adopts and a split, each what a fresh policy decides on the
+  observed window); a seeded
+  ``FleetSim`` over the calibration the phase measured, printed and
+  written to ``runs/fleetsim_calibration.json`` (gitignored).  Reported:
+  ``epoch_regen_ms`` p50/p99 beside a direct regen, the ``GET_BATCH``
+  round trip through the router and straight at a shard, batches/s, the
+  reshard barrier, the shard and cell failover times, wire bytes in
+  capability mode, launches.
+  The phase alone: ``python3 chip_smoke.py --sharding``.
 
 ``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
 the ``shard_row_keys`` and ``shard_expand`` times, the elastic remainder
@@ -178,6 +204,7 @@ The last line of standard output is
 the line before it is ``{"kernels": [...]}``.
 """
 
+import functools
 import itertools
 import json
 import os
@@ -396,6 +423,20 @@ FAILOVER_RANKS, FAILOVER_BATCHES = 4, 200
 #: the kernels the slice-12 main path (the servers' and clients' regens)
 #: launches
 SLICE12 = ("index_amortized", "index_positions", "mixture_fused",
+           "weighted_stream")
+#: slice 13, the sharded plane (phase 21): C4 at world 256 over 4 shards
+#: (docs/SHARDING.md's deployment), two client ranks a shard, the
+#: cross-shard reshard's new world; the tenants' and the autopilot
+#: plane's transport batch; the federation's client ranks and its
+#: capability client; the dedup draws that price fleetsim's host fold
+SHARD_WORLD, SHARD_SHARDS, SHARD_NEW_WORLD = 256, 4, 192
+SHARD_RANKS = (0, 63, 64, 127, 128, 191, 192, 255)
+TENANT_BATCH = 65536
+FED_RANKS, FED_CAP_RANK = (0, 255), 1
+DEDUP_DRAWS = 20_000
+#: the kernels the slice-13 main path (shards, cells and the autopilot's
+#: plane) launches
+SLICE13 = ("index_amortized", "index_positions", "mixture_fused",
            "weighted_stream")
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -2312,30 +2353,103 @@ def pattern_errors(b, ids):
             + (b8[:, 4:] != (hdr % 251).to(torch.uint8)[:, None]).sum())
 
 
-def union_exactly_once(consumed_vals, remainder_vals, stream, old_world,
-                       consumed, new_world) -> str:
-    """``tests/conftest.py::assert_exactly_once`` for a strided partition,
-    as a message ('' when it holds): the old ranks' ``consumed`` samples
-    each plus the new ranks' remainders are the epoch ``stream`` as a
-    multiset, plus exactly the wrap-pad count of extras, each drawn from
-    the unconsumed part of the stream."""
+def timed_ms(fn) -> float:
+    """Host wall ms of one call, to a synchronised device."""
+    import torch
+
+    t = time.perf_counter()
+    fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def hold_stream(errs: dict, name: str, got, want, label: str) -> None:
+    """A host stream ``got`` against the plain version ``want`` on the
+    card at tolerance 0; its largest error into ``errs[name]``."""
+    import numpy as np
+    import torch
+
+    g = torch.from_numpy(np.array(got)).to(want.device).long()
+    same = g.shape == want.shape
+    err = int((g - want.long()).abs().max()) if same and g.numel() else 0
+    errs[name] = max(errs.get(name, 0), err)
+    check(same and err == 0, f"{name} {label}: {g.numel()} lanes against "
+          f"{want.numel()} of the plain version, max_abs_err {err}")
+
+
+def take_launches(into: dict) -> dict:
+    """The launches since the last reset, added to ``into``, and the
+    counters reset."""
+    from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        cuda_kernel as ck,
+    )
+
+    got = {k: v for k, v in ck.launches.items() if v}
+    for k, v in got.items():
+        into[k] += v
+    ck.reset_launches()
+    return got
+
+
+def pct(xs, q) -> float:
+    """The ``q`` th percentile of ``xs``."""
     import numpy as np
 
-    total = len(stream)
-    rem = total - consumed * old_world
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+def run_threads(fns, timeout: float = 300.0) -> None:
+    """Run each of ``fns`` on a thread of its own; raise the first
+    error."""
+    import threading
+
+    errors = []
+
+    def wrap(fn):
+        try:
+            fn()
+        except BaseException as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=wrap, args=(fn,)) for fn in fns]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+        check(not t.is_alive(), "a thread of the phase hung")
+    if errors:
+        raise errors[0]
+
+
+def union_exactly_once(consumed, remainders, ranks, n, old_world,
+                       consumed_n, new_world, dev) -> str:
+    """``tests/conftest.py::assert_exactly_once`` on ``dev``, as a message
+    ('' when it holds), for an id space of ``n``: the old ranks'
+    ``consumed`` prefixes plus the new ranks' ``remainders`` are the old
+    ranks' streams (``ranks``) as a multiset, plus exactly the wrap-pad
+    count of extras, each drawn from the unconsumed parts."""
+    import numpy as np
+    import torch
+
+    def counts(parts):
+        x = torch.from_numpy(np.concatenate(parts)).to(dev).long()
+        return torch.bincount(x, minlength=n).to(torch.int32)
+
+    full = counts(ranks)
+    got = counts(consumed)
+    got += counts(remainders)
+    missing = int((full - got).clamp_(min=0).sum())
+    if missing:
+        return f"{missing} epoch values missing"
+    got -= full
+    del full
+    total = sum(len(r) for r in ranks)
+    rem = total - consumed_n * old_world
     n_extra = -(-rem // new_world) * new_world - rem
-    span = int(max(stream.max(), np.max(consumed_vals, initial=0),
-                   np.max(remainder_vals, initial=0))) + 1
-    got = (np.bincount(consumed_vals, minlength=span)
-           + np.bincount(remainder_vals, minlength=span))
-    full = np.bincount(stream, minlength=span)
-    if (got < full).any():
-        return f"{int((full - got).clip(0).sum())} epoch values missing"
-    extras = got - full
-    if int(extras.sum()) != n_extra:
-        return f"{int(extras.sum())} extras, the wrap pad is {n_extra}"
-    allowed = np.bincount(stream[old_world * consumed:], minlength=span)
-    if (extras > allowed).any():
+    if int(got.sum()) != n_extra:
+        return f"{int(got.sum())} extras, the wrap pad is {n_extra}"
+    if bool((got > counts([r[consumed_n:] for r in ranks])).any()):
         return "a wrap-pad extra is not from the remainder"
     return ""
 
@@ -2380,50 +2494,9 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
     dev = torch.device("cuda")
     launches20 = {k: 0 for k in ck.launches}
     errs = {}  # only the kernels held against their plain versions
+    hold = functools.partial(hold_stream, errs)
+    take = functools.partial(take_launches, launches20)
     t_phase = time.perf_counter()
-
-    def hold(name, got, want, label):
-        """A host stream ``got`` against the plain version ``want`` on the
-        card at tolerance 0; its largest error into ``errs``."""
-        g = torch.from_numpy(np.array(got)).to(dev).long()
-        same = g.shape == want.shape
-        err = (int((g - want.long()).abs().max()) if same and g.numel()
-               else 0)
-        errs[name] = max(errs.get(name, 0), err)
-        check(same and err == 0, f"{name} {label}: {g.numel()} lanes "
-              f"against {want.numel()} of the plain version, max_abs_err "
-              f"{err}")
-
-    def take_launches() -> dict:
-        """The launches since the last reset, added to the phase's, and
-        the counters reset."""
-        got = {k: v for k, v in ck.launches.items() if v}
-        for k, v in got.items():
-            launches20[k] += v
-        ck.reset_launches()
-        return got
-
-    def pct(xs, q):
-        return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
-
-    def run_threads(fns, timeout=300.0):
-        """Run each of ``fns`` on a thread; raise the first error."""
-        errors = []
-
-        def wrap(fn):
-            try:
-                fn()
-            except BaseException as exc:  # reported below
-                errors.append(exc)
-
-        threads = [threading.Thread(target=wrap, args=(fn,)) for fn in fns]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout)
-            check(not t.is_alive(), "a service thread hung")
-        if errors:
-            raise errors[0]
 
     c4 = pt.PartialShuffleSpec.plain(N_C4, window=W, world=SERVE_WORLD)
     ns256, _ = core.shard_sizes(N_C4, SERVE_WORLD, False)
@@ -2451,7 +2524,7 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
         t0 = time.perf_counter()
         run_threads([lambda r=r: client(r) for r in SERVE_RANKS])
         all_s = time.perf_counter() - t0
-        got = take_launches()
+        got = take()
         regen_ms = list(srv.metrics.regen_timer.samples_ms)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # the cached arrays are read-only
@@ -2484,7 +2557,7 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
                 except StopIteration:
                     break
                 rtt.append((time.perf_counter() - t0) * 1e6)
-        replay = take_launches()
+        replay = take()
     for r in SERVE_RANKS:
         check(np.array_equal(streams[r], direct[r])
               and streams[r].dtype == direct[r].dtype,
@@ -2541,7 +2614,7 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
         run_threads([lambda a=a, s=s, r=r: tenant_client(a, s, r)
                      for a, s, _ in tenants for r in ranks2])
         mt_s = time.perf_counter() - t0
-        launched = take_launches()
+        launched = take()
         n_tenants = len(srv.tenants())
         queue = srv.metrics.report()["histograms"].get("regen_queue_ms", {})
     for label, spec, kernel in tenants:
@@ -2620,7 +2693,7 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
                     + [lambda j=j: joiner(j) for j in range(new_w - old_w)])
         el_s = time.perf_counter() - t0
         state = srv._state_dict()
-        launched = take_launches()
+        launched = take()
     check(state["generation"] == 1 and len(state["layers"]) == 1
           and int(state["layers"][0][0]) == old_w,
           f"elastic: generation {state['generation']}, layers "
@@ -2628,9 +2701,7 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
     consumed = int(state["layers"][0][1])
     check(sorted(delivered) == list(range(new_w)),
           f"elastic: streams of ranks {sorted(delivered)}")
-    stream = np.empty(ns8 * old_w, dtype=np.int64)
-    for r in range(old_w):
-        stream[r::old_w] = inet.rank_indices(0, r)
+    streams8 = [inet.rank_indices(0, r) for r in range(old_w)]
     ck.reset_launches()
     # each old rank's stream up to the barrier, then each new rank's
     # remainder, against the plain laws on the card
@@ -2650,13 +2721,11 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
             chain=chain, device=dev),
              f"ImageNet world {new_w} rank {r}, the remainder after "
              f"{old_w} x {consumed}")
-    consumed_vals = np.concatenate([delivered[r][:consumed]
-                                    for r in range(old_w)]).astype(np.int64)
-    remainder_vals = np.concatenate(
+    why = union_exactly_once(
+        [delivered[r][:consumed] for r in range(old_w)],
         [delivered[r][consumed:] for r in range(old_w)]
-        + [delivered[r] for r in range(old_w, new_w)]).astype(np.int64)
-    why = union_exactly_once(consumed_vals, remainder_vals, stream, old_w,
-                             consumed, new_w)
+        + [delivered[r] for r in range(old_w, new_w)],
+        streams8, N_IMAGENET, old_w, consumed, new_w, dev)
     check(why == "", f"elastic ImageNet {old_w} -> {new_w}: {why}")
     check(launched == {"index_amortized": old_w, "index_positions": new_w},
           f"elastic: launches {launched}, not one index_amortized an old "
@@ -2720,7 +2789,7 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
     finally:
         primary.kill()
         standby.stop()
-    launched = take_launches()
+    launched = take()
     check(promoted == "primary", "the standby was not promoted")
     for r in ranks4:
         s, _, counters = fo.get(r, (None, 0, {}))
@@ -2775,14 +2844,14 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
                                 spec=c4, capability_secret=secret) as c:
             cap, cap_wire, cap_idx = index_bytes_of(
                 lambda: c.capability_epoch_indices(0))
-        cap_launched = take_launches()
+        cap_launched = take()
         # the server regenerates the rank once at issuance (the grant's
         # total); the rest is the client's regen
         issue_regens = srv.metrics.regen_timer.count
         with ServiceIndexClient(srv.address, rank=1, batch=SERVE_BATCH) as c:
             served1, srv_wire, srv_idx = index_bytes_of(
                 lambda: c.epoch_indices(0))
-        take_launches()
+        take()
     check(np.array_equal(cap, direct[0]),
           "the capability stream differs from case 1's")
     check(np.array_equal(served1, direct[1]), "served rank 1 differs")
@@ -2834,7 +2903,7 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
             ld.close()
             if client is not None:
                 client.close()
-        served_launched = take_launches()
+        served_launched = take()
         # the degrade: the served epoch 0 runs on after the daemon stops,
         # and epoch 1 is regenerated locally on the card
         T.reset()
@@ -2855,7 +2924,7 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
             if s + 1 == 2 * stall_steps:
                 break
         it.close()
-        before_degrade = take_launches()
+        before_degrade = take()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         steps1 = 0
@@ -2866,7 +2935,7 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
             if s + 1 == stall_steps:
                 break
         it.close()
-    degraded_launched = take_launches()
+    degraded_launched = take()
     events = [ev["name"] for sp in T.snapshot() if sp.get("kind") == "span"
               for ev in sp.get("events", ())]
     T.configure(enabled=False)
@@ -2900,6 +2969,802 @@ def service_phase(card: str, max_sm_mhz: float) -> tuple:
     del data
     print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
     return launches20, errs
+
+
+def sharding_phase(card: str) -> tuple:
+    """Phase 21, the slice-13 main path: the sharded plane, federation and
+    the autopilot on the card.  Shards, standbys, routers, cells and
+    clients run as threads of this process, every regen of the servers
+    through specs on ``backend="cuda"``: C4 1B/8192 at world 256 over
+    ``ShardPlane(n_shards=4, standby=True, wal_dir=...)`` (the deployment
+    of docs/SHARDING.md) served to two ranks a shard through the router;
+    the cross-shard reshard 256 -> 192 a third of the way through an
+    epoch (all 256 ranks; the union exactly once); ``split_shard``,
+    ``merge_shards`` and ``migrate_ranks`` under live clients, then a
+    shard primary killed under its standby; M1 and W1 attached as tenants
+    across the shards; a two-cell ``Federation`` killed and promoted, a
+    ``TrustBundle`` capability client, a live ``migrate_tenant``; the
+    ``Autopilot`` on a live plane (the card probe, a tune a client adopts,
+    a split under a hotspot); a seeded ``FleetSim`` over the calibration
+    the phase measured, written to ``runs/fleetsim_calibration.json``.
+    Every stream is held at tolerance 0.  Returns ``(launches, errors)``:
+    the path's launches, and each kernel's largest error against its
+    plain version."""
+    import copy
+    import dataclasses
+    import math
+    import tempfile
+    import threading
+    import warnings
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import partiallyshuffledistributedsampler_tpu_torch as pt
+    from partiallyshuffledistributedsampler_tpu_torch import fleetsim as fs
+    from partiallyshuffledistributedsampler_tpu_torch.autopilot import (
+        Autopilot,
+        AutopilotPolicy,
+        PolicyConfig,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.federation import (
+        Federation,
+        verify_capability,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        core,
+        cuda_kernel as ck,
+        mixture as M,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.sampling import (
+        alias as A,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.service import (
+        ServiceError,
+        ServiceIndexClient,
+        protocol as P,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.sharding import (
+        ShardPlane,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.tenancy import (
+        tenant_id_for,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.utils import autotune
+
+    dev = torch.device("cuda")
+    n, world, new_world = N_C4, SHARD_WORLD, SHARD_NEW_WORLD
+    launches21 = {k: 0 for k in ck.launches}
+    errs = {}  # only the kernels held against their plain versions
+    hold = functools.partial(hold_stream, errs)
+    take = functools.partial(take_launches, launches21)
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="psds-phase21-")
+
+    def sigma_of(p50, p99):
+        """The lognormal spread whose p99 / p50 is the measured one."""
+        return (max(0.0, math.log(p99 / p50) / 2.326)
+                if p50 > 0 and p99 > 0 else 0.0)
+
+    def reconnect(addr, rank, **kw):
+        """A client of ``rank`` once the lease of its last client frees."""
+        deadline = time.monotonic() + 10.0
+        while True:
+            c = ServiceIndexClient(addr, rank=rank, **kw)
+            try:
+                c.heartbeat()
+                return c
+            except ServiceError as exc:
+                c.close()
+                check(exc.code == "rank_taken"
+                      and time.monotonic() < deadline,
+                      f"rank {rank} could not reconnect: {exc}")
+                time.sleep(0.01)
+
+    def timed_batches(c, epoch):
+        """Each batch of ``epoch`` and the round trip of each (µs)."""
+        it, parts, rtt = c.epoch_batches(epoch), [], []
+        while True:
+            t0 = time.perf_counter()
+            try:
+                parts.append(next(it))
+            except StopIteration:
+                return parts, rtt
+            rtt.append((time.perf_counter() - t0) * 1e6)
+
+    def wait_standby(primary, standby):
+        deadline = time.monotonic() + 30.0
+        while not (primary._shipper is not None
+                   and primary._shipper.synced.is_set()
+                   and standby._applied_lsn >= primary._repl_log.lsn):
+            check(time.monotonic() < deadline, "a standby never synced")
+            time.sleep(0.01)
+
+    c4 = pt.PartialShuffleSpec.plain(n, window=W, seed=0, world=world)
+    ns, _ = core.shard_sizes(n, world, False)
+    skw = dict(repl_feed_timeout=0.25, max_inflight=16)
+    direct = {r: c4.rank_indices(0, r) for r in SHARD_RANKS}
+    # one rank again and again, as a shard's regens run (its pinned
+    # readback buffer reused)
+    direct_ms = float(np.median([timed_ms(lambda: c4.rank_indices(0, 3))
+                                 for _ in range(20)]))
+    for r in (0, world - 1):
+        hold("index_amortized", direct[r], ck.epoch_indices_amortized_ref(
+            n, W, 0, 0, r, world, ns, device=dev),
+             f"C4 world {world} rank {r}, the direct regen")
+    ck.reset_launches()
+
+    # ---- (a) the sharded plane: two ranks a shard through the router
+    plane = ShardPlane(c4, SHARD_SHARDS, standby=True,
+                       wal_dir=os.path.join(tmp.name, "a"),
+                       server_kwargs=skw)
+    plane.start()
+    try:
+        streams, rates, routed = {}, {}, {}
+
+        def client(r):
+            with ServiceIndexClient(plane.address, rank=r,
+                                    batch=SERVE_BATCH) as c:
+                t0 = time.perf_counter()
+                parts = list(c.epoch_batches(0))
+                rates[r] = (len(parts), time.perf_counter() - t0)
+                routed[r] = (tuple(c.address), c.shard_map is not None)
+            streams[r] = np.concatenate(parts)
+
+        t0 = time.perf_counter()
+        run_threads([lambda r=r: client(r) for r in SHARD_RANKS])
+        all_s = time.perf_counter() - t0
+        got = take()
+        for r in SHARD_RANKS:
+            owner = plane.map.owner(r)
+            check(routed[r] == (tuple(plane.shards[owner].address), True),
+                  f"rank {r} was not redirected to its shard {owner}: "
+                  f"{routed[r]}")
+            check(np.array_equal(streams[r], direct[r])
+                  and streams[r].dtype == direct[r].dtype,
+                  f"sharded C4 rank {r} differs from its direct regen")
+        check(got == {"index_amortized": len(SHARD_RANKS)},
+              f"sharded C4: launches {got}")
+        regen_ms = [x for s in plane.shards
+                    for x in s.metrics.regen_timer.samples_ms]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # cached arrays are read-only
+            pinned = sum(bool(torch.from_numpy(a).is_pinned())
+                         for s in plane.shards for a in s._cache.values())
+        check(pinned == 0, f"the shards cache {pinned} page-locked arrays")
+        # a reconnect through the router, then one straight at the shard:
+        # both replay from the cache at lookahead 1, each round trip timed
+        with reconnect(plane.address, 0, batch=SERVE_BATCH,
+                       lookahead=1) as c:
+            parts, rtt_router = timed_batches(c, 0)
+        check(np.array_equal(np.concatenate(parts), direct[0]),
+              "the replayed rank 0 differs")
+        owner = plane.map.owner(SHARD_RANKS[1])
+        with reconnect(plane.shards[owner].address, SHARD_RANKS[1],
+                       batch=SERVE_BATCH, lookahead=1) as c:
+            parts, rtt_direct = timed_batches(c, 0)
+        check(np.array_equal(np.concatenate(parts), direct[SHARD_RANKS[1]]),
+              "the directly replayed rank differs")
+        replay = take()
+        check(replay == {}, f"the cache replays launched {replay}")
+        plane.router.set_epoch(1)
+        check(all(s.epoch == 1 for s in plane.shards),
+              f"set_epoch fan-out: shard epochs "
+              f"{[s.epoch for s in plane.shards]}")
+        nbytes = direct[0].nbytes
+        print(f"sharding C4 {n}/8192 world {world} over {SHARD_SHARDS} "
+              f"shards with standbys and WAL, ranks {SHARD_RANKS} through "
+              f"the router, batch {SERVE_BATCH}: each redirected to its "
+              f"shard, every stream ({len(direct[0])} indices) byte-equal "
+              f"to a direct regen, ranks 0 and {world - 1} to the plain law; "
+              f"launches {json.dumps(got)}; no cached epoch page-locked; "
+              f"cache replays launched {json.dumps(replay)}; set_epoch "
+              f"fan-out to epoch 1 on every shard | {card}")
+        print(f"time sharding epoch_regen_ms (a shard: kernel + readback, "
+              f"host wall) over {len(regen_ms)} regens: p50 "
+              f"{pct(regen_ms, 50):.4f} p99 {pct(regen_ms, 99):.4f} ms; a "
+              f"direct rank_indices: median {direct_ms:.4f} ms | {card}")
+        print(f"time sharding GET_BATCH round trip (lookahead 1, cache "
+              f"hit, {SERVE_BATCH} int32): through the router p50 "
+              f"{pct(rtt_router, 50):.1f} p99 {pct(rtt_router, 99):.1f} us, "
+              f"straight at the shard p50 {pct(rtt_direct, 50):.1f} p99 "
+              f"{pct(rtt_direct, 99):.1f} us over {len(rtt_router)} | {card}")
+        print(f"time sharding 8 clients together: "
+              f"{sum(k for k, _ in rates.values()) / all_s:.1f} batches/s, "
+              f"{nbytes * len(SHARD_RANKS) / all_s / 1e6:.1f} MB/s "
+              f"({all_s:.3f} s; a client "
+              f"{min(k / s for k, s in rates.values()):.1f}-"
+              f"{max(k / s for k, s in rates.values()):.1f} batches/s) | "
+              f"{card}")
+
+        # ---- (b) the cross-shard reshard 256 -> 192 a third of the way
+        epoch = 1
+        ref1 = {r: c4.rank_indices(epoch, r) for r in range(world)}
+        ck.reset_launches()
+        batch_b = -(-ns // 15)
+        third = 5  # batches of ns / 15: a third of the epoch
+        delivered = {}
+        hit = threading.Barrier(world + 1)
+        go = threading.Barrier(world + 1)
+
+        def old_rank(r):
+            with ServiceIndexClient(plane.address, rank=r, batch=batch_b,
+                                    lookahead=1, timeout=120.0,
+                                    backoff_base=0.01,
+                                    reconnect_timeout=60.0) as c:
+                it = c.epoch_batches(epoch)
+                got = [next(it) for _ in range(third)]
+                hit.wait(120.0)
+                go.wait(120.0)
+                got += list(it)
+                delivered[r] = np.concatenate(got)
+
+        barrier_err = []
+
+        def run_barrier():
+            try:
+                plane.router.reshard(new_world)
+            except Exception as exc:  # raised below
+                barrier_err.append(exc)
+
+        def control():
+            hit.wait(120.0)
+            bt = threading.Thread(target=run_barrier)
+            bt.start()
+            deadline = time.monotonic() + 60.0
+            while not all(s._reshard is not None for s in plane.shards):
+                check(time.monotonic() < deadline and bt.is_alive(),
+                      f"the shards never froze: {barrier_err}")
+                time.sleep(0.002)
+            go.wait(120.0)
+            bt.join(120.0)
+            check(not bt.is_alive() and not barrier_err,
+                  f"the router's barrier failed: {barrier_err}")
+
+        t0 = time.perf_counter()
+        run_threads([lambda r=r: old_rank(r) for r in range(world)]
+                    + [control])
+        reshard_s = time.perf_counter() - t0
+        launched_b = take()
+        states = [s._state_dict() for s in plane.shards]
+        gens = {int(st["generation"]) for st in states}
+        layers = {tuple(map(tuple, st["layers"])) for st in states}
+        check(gens == {1} and len(layers) == 1,
+              f"reshard: generations {gens}, layers {layers}")
+        (lay,) = layers
+        check(len(lay) == 1 and int(lay[0][0]) == world,
+              f"reshard: layers {lay}")
+        consumed = int(lay[0][1])
+        check(all(s.spec.world == new_world for s in plane.shards)
+              and plane.router._map.version == 2,
+              "reshard: a shard kept the old world or the map its version")
+        freeze = [s.metrics.registry.histogram("barrier_freeze_ms")
+                  .report()["p50_ms"] for s in plane.shards]
+        drain = [s.metrics.registry.histogram("barrier_drain_ms")
+                 .report()["p50_ms"] for s in plane.shards]
+        barrier_ms = plane.router.metrics.registry.histogram(
+            "shard_barrier_ms").report()["p50_ms"]
+        wal = [s.metrics.registry.histogram("wal_fsync_ms").report()
+               for s in plane.shards]
+        # each old rank's stream to the barrier against the direct regen
+        # (four of them also against the plain law), each new rank's
+        # remainder against index_positions' plain version
+        chain, _rem, ns_el = core.elastic_chain(n, [(world, consumed)],
+                                                new_world)
+        for r in range(world):
+            check(np.array_equal(delivered[r][:consumed],
+                                 ref1[r][:consumed]),
+                  f"reshard: old rank {r}'s stream to the barrier differs")
+            if r in (0, 63, 64, world - 1):
+                hold("index_amortized", delivered[r][:consumed],
+                     ck.epoch_indices_amortized_ref(
+                         n, W, 0, epoch, r, world, ns,
+                         device=dev)[:consumed],
+                     f"C4 world {world} rank {r} to the barrier")
+            if r >= new_world:
+                check(len(delivered[r]) == consumed,
+                      f"reshard: departed rank {r} took "
+                      f"{len(delivered[r])} samples, not {consumed}")
+                continue
+            hold("index_positions", delivered[r][consumed:],
+                 ck.index_positions_ref(
+                     n, W, 0, epoch, rank=r, world=new_world,
+                     num_samples=ns_el, chain=chain, device=dev),
+                 f"C4 world {new_world} rank {r}, the remainder after "
+                 f"{world} x {consumed}")
+        why = union_exactly_once(
+            [delivered[r][:consumed] for r in range(world)],
+            [delivered[r][consumed:] for r in range(new_world)],
+            [ref1[r] for r in range(world)], n, world, consumed,
+            new_world, dev)
+        check(why == "", f"reshard C4 {world} -> {new_world}: {why}")
+        check(launched_b == {"index_amortized": world,
+                             "index_positions": new_world},
+              f"reshard: launches {launched_b}")
+        del delivered, ref1
+        print(f"sharding reshard C4 world {world} -> {new_world} across "
+              f"{SHARD_SHARDS} shards (router two-phase barrier) after "
+              f"{consumed} of {ns} samples a rank: every rank's stream to "
+              f"the barrier equal to its direct regen (ranks 0, 63, 64, "
+              f"{world - 1} to the plain law), every new rank's remainder "
+              f"to index_positions' plain version (max_abs_err 0), the "
+              f"union the epoch exactly once (conftest's law, on the "
+              f"card); launches {json.dumps(launched_b)} ({reshard_s:.3f} s, "
+              f"transport batch {batch_b}) | {card}")
+        print(f"time sharding reshard barrier (router, prepare to commit) "
+              f"{barrier_ms:.3f} ms; per shard freeze p50 "
+              f"{json.dumps(freeze)} ms, drain p50 {json.dumps(drain)} ms | "
+              f"{card}")
+    finally:
+        plane.stop()
+
+    # ---- (c) split, merge, migrate under live clients; a shard failover
+    plane = ShardPlane(c4, SHARD_SHARDS, standby=True,
+                       wal_dir=os.path.join(tmp.name, "c"),
+                       server_kwargs=skw)
+    plane.start()
+    steps = ("split", "merge", "migrate", "kill")
+    gates = [threading.Barrier(len(SHARD_RANKS) + 1)
+             for _ in range(2 * len(steps))]
+    streams_c, first_after_kill = {}, {}
+    # 10 batches between moves: more than the client's lookahead, so each
+    # rank has re-HELLOed its new owner (and learned its standby) before
+    # the next move
+    per_step = 10
+    batch_c = -(-ns // (per_step * (len(steps) + 2)))
+
+    def live_client(r):
+        with ServiceIndexClient(plane.address, rank=r, batch=batch_c,
+                                spec=c4, backoff_base=0.01,
+                                reconnect_timeout=2.0) as c:
+            it = c.epoch_batches(0)
+            got = []
+            for g in range(len(steps)):
+                got += [next(it) for _ in range(per_step)]
+                gates[2 * g].wait(120.0)
+                gates[2 * g + 1].wait(120.0)
+            for arr in it:
+                got.append(arr)
+                if r not in first_after_kill and c.metrics.report()[
+                        "counters"].get("failovers", 0):
+                    first_after_kill[r] = time.perf_counter()
+            streams_c[r] = (np.concatenate(got),
+                            c.metrics.report()["counters"])
+
+    moves, maps = {}, [plane.map]
+
+    def conductor():
+        for g, step in enumerate(steps):
+            gates[2 * g].wait(120.0)
+            if step == "split":
+                moves[step] = plane.split_shard(0)
+            elif step == "merge":
+                moves[step] = plane.merge_shards(0, moves["split"]).version
+            elif step == "migrate":
+                moves[step] = plane.migrate_ranks(1, 2, 1).version
+            else:
+                victim = plane.map.owner(world // 2)
+                primary = plane._server(victim)
+                standby = next(s for s in plane.standbys
+                               if s.shard_id == victim)
+                wait_standby(primary, standby)
+                moves[step] = (victim, time.perf_counter())
+                primary.kill()
+                moves["standby"] = standby
+            maps.append(plane.map)
+            gates[2 * g + 1].wait(120.0)
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run_threads([lambda r=r: live_client(r) for r in SHARD_RANKS]
+                    + [conductor])
+        map_c = plane.map
+        promoted = moves["standby"].role
+    finally:
+        plane.stop()
+    maps_s = time.perf_counter() - t0
+    launched_c = take()
+    victim, t_kill = moves["kill"]
+    check(promoted == "primary", "the shard's standby was not promoted")
+    for r in SHARD_RANKS:
+        s, counters = streams_c[r]
+        check(np.array_equal(s, direct[r]),
+              f"map changes: rank {r}'s stream has a gap or a duplicate")
+        check(counters.get("degraded_mode", 0) == 0,
+              f"map changes: rank {r} degraded: {counters}")
+    killed_ranks = [r for r in SHARD_RANKS if map_c.owner(r) == victim]
+    check(killed_ranks and all(r in first_after_kill
+                               for r in killed_ranks),
+          f"failover: ranks {killed_ranks} of shard {victim} never failed "
+          f"over ({sorted(first_after_kill)})")
+    shard_failover_ms = (min(first_after_kill[r] for r in killed_ranks)
+                         - t_kill) * 1e3
+    # one launch for each (server, rank) pair the moves made serve: a
+    # rank on each owner it had, the killed shard's on its standby
+    served_by = ({(m.owner(r), r) for m in maps for r in SHARD_RANKS}
+                 | {("standby", r) for r in killed_ranks})
+    check(launched_c == {"index_amortized": len(served_by)},
+          f"map changes: launches {launched_c}, not one for each of "
+          f"{len(served_by)} (server, rank) pairs served")
+    print(f"sharding map changes under {len(SHARD_RANKS)} live clients "
+          f"(batch {batch_c}, {per_step} batches between moves): "
+          f"split_shard(0) -> shard {moves['split']}, merge_shards(0, "
+          f"{moves['split']}) -> map v{moves['merge']}, migrate_ranks(1, 2, "
+          f"1) -> map v{moves['migrate']}, then shard {victim}'s primary "
+          f"killed under its standby: every stream bit-identical to its "
+          f"direct regen, no gap, no duplicate, no degraded entry; "
+          f"launches {json.dumps(launched_c)} (a rank again on each new "
+          f"owner) ({maps_s:.3f} s) | {card}")
+    print(f"time sharding shard failover, the kill to the first batch the "
+          f"promoted standby serves: {shard_failover_ms:.1f} ms (ranks "
+          f"{killed_ranks}, reconnect_timeout 2.0 s, feed timeout 0.25 s) | "
+          f"{card}")
+
+    # ---- (d) M1 and W1 attached as tenants across the shards
+    # M1's sources (scaled with n: M1 itself at n = 1e9)
+    sizes_m1 = list(M1_SOURCES)
+    mspec = pt.MixtureSpec(sizes_m1, M1_WEIGHTS, windows=W)
+    m1 = pt.PartialShuffleSpec.mixture(mspec, world=world)
+    w1 = pt.SamplingSpec.weighted(sizes_m1, W1_WEIGHTS,
+                                  weight_kind="per_sample",
+                                  epoch_samples=n, window=W, world=world)
+    tenants = (("M1", m1, "mixture_fused"), ("W1", w1, "weighted_stream"))
+    ranks_d = (0, world - 1)
+    got_d = {}
+    ck.reset_launches()
+    with ShardPlane(c4, SHARD_SHARDS, multi_tenant=True,
+                    server_kwargs=skw) as tplane:
+        attached = {label: tplane.router.attach_tenant(spec)
+                    for label, spec, _ in tenants}
+
+        def tenant_client(label, spec, r):
+            with ServiceIndexClient(tplane.address, rank=r,
+                                    batch=TENANT_BATCH, spec=spec) as c:
+                got_d[label, r] = c.epoch_indices(0)
+
+        t0 = time.perf_counter()
+        run_threads([lambda a=a, s=s, r=r: tenant_client(a, s, r)
+                     for a, s, _ in tenants for r in ranks_d])
+        tenants_s = time.perf_counter() - t0
+        launched_d = take()
+    for label, spec, _ in tenants:
+        check(attached[label] == list(range(SHARD_SHARDS)),
+              f"tenant {label} attached on shards {attached[label]}")
+        for r in ranks_d:
+            check(np.array_equal(got_d[label, r], spec.rank_indices(0, r)),
+                  f"tenant {label} rank {r} differs from its direct regen")
+    ck.reset_launches()  # the references' launches are not the path's
+    _t, ns_m1, total_m1 = M.mixture_epoch_sizes(mspec, None, world, False)
+    table_w1 = A.build_alias_table(W1_WEIGHTS, "per_sample", sizes_m1)
+    for r in ranks_d:
+        hold("mixture_fused", got_d["M1", r], ck.mixture_fused_ref(
+            None, mspec, 0, 0, rank=r, world=world, num_samples=ns_m1,
+            wide_pos=total_m1 + mspec.block > core.INT32_MAX, device=dev),
+             f"tenant M1 world {world} rank {r} across the shards")
+        hold("weighted_stream", got_d["W1", r], ck.weighted_stream_ref(
+            table_w1, sizes_m1, 0, 0, epoch_samples=n, rank=r, world=world,
+            num_samples=w1.num_samples(), window=W, device=dev),
+             f"tenant W1 world {world} rank {r} across the shards")
+    check(launched_d == {k: len(ranks_d) for _, _, k in tenants},
+          f"tenants: launches {launched_d}")
+    # the weighted line against the uniform one (fleetsim's multiplier)
+    w_ms = float(np.median([timed_ms(lambda: w1.rank_indices(0, 5))
+                            for _ in range(7)]))
+    u_ms = float(np.median([timed_ms(lambda: c4.rank_indices(0, 5))
+                            for _ in range(7)]))
+    ck.reset_launches()
+    print(f"sharding tenants M1 and W1 attached on shards "
+          f"{attached['M1']} / {attached['W1']}, ranks {ranks_d} each, "
+          f"batch {TENANT_BATCH}: streams equal to the direct regens and to "
+          f"mixture_fused's and weighted_stream's plain versions "
+          f"(max_abs_err 0); launches {json.dumps(launched_d)} "
+          f"({tenants_s:.3f} s) | {card}")
+    print(f"time sharding direct regen, W1 {w_ms:.4f} ms against C4 "
+          f"{u_ms:.4f} ms median (kernel + readback, world {world}) | "
+          f"{card}")
+
+    # ---- (e) federation: two cells, a cell failover, capabilities, and
+    # a live tenant migration
+    fed_root = "chip-smoke-federation-root"
+    got_e, first_e = {}, {}
+    streamed = threading.Barrier(len(FED_RANKS) + 1)
+    killed = threading.Barrier(len(FED_RANKS) + 1)
+    ck.reset_launches()
+    real_recv = P._recv_exact
+    main_thread = threading.current_thread()
+    wire = {"bytes": 0, "index": 0}
+
+    def counting_recv(sock, k):
+        if threading.current_thread() is main_thread:
+            wire["bytes"] += k
+        return real_recv(sock, k)
+
+    real_msg = P.recv_msg
+
+    def counting_msg(sock, **kw):
+        msg, header, payload = real_msg(sock, **kw)
+        if threading.current_thread() is main_thread \
+                and msg == P.MSG_BATCH:
+            wire["index"] += len(payload)
+        return msg, header, payload
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with Federation(c4, root=os.path.join(tmp.name, "e"), home="east",
+                        dr="west", n_shards=2, capability_root=fed_root,
+                        repl_feed_timeout=0.25,
+                        server_kwargs=dict(max_inflight=16)) as fed:
+            check(fed.wait_synced(30.0), "the federation never synced")
+            # capability mode through the trust bundle, before the kill
+            P._recv_exact, P.recv_msg = counting_recv, counting_msg
+            try:
+                with ServiceIndexClient(fed.address, rank=FED_CAP_RANK,
+                                        batch=SERVE_BATCH, spec=c4,
+                                        capability_secret=fed.trust) as c:
+                    cap = c._fetch_capability(0, c4)
+                    cap_stream = c.capability_epoch_indices(0)
+            finally:
+                P._recv_exact, P.recv_msg = real_recv, real_msg
+            cap_launched = take()
+            check(verify_capability(fed.trust, cap)
+                  and (cap.cell, cap.kid) == ("east", 1),
+                  f"the grant is not east's kid 1: {cap.cell}/{cap.kid}")
+
+            def cell_client(r):
+                with ServiceIndexClient(fed.address, rank=r,
+                                        batch=batch_c, backoff_base=0.01,
+                                        reconnect_timeout=0.5) as c:
+                    it = c.epoch_batches(0)
+                    got = [next(it) for _ in range(per_step)]
+                    streamed.wait(120.0)
+                    killed.wait(120.0)
+                    for arr in it:
+                        got.append(arr)
+                        if r not in first_e and c.metrics.report()[
+                                "counters"].get("failovers", 0):
+                            first_e[r] = time.perf_counter()
+                    check(c.cell == "west", f"rank {r} ended in {c.cell}")
+                    got_e[r] = np.concatenate(got)
+
+            def dr_drill():
+                streamed.wait(120.0)
+                check(fed.wait_shipped(30.0), "the WAL tail never shipped")
+                first_e["kill"] = time.perf_counter()
+                fed.kill_cell("east")
+                fed.promote("west", dead="east")
+                killed.wait(120.0)
+
+            run_threads([lambda r=r: cell_client(r) for r in FED_RANKS]
+                        + [dr_drill])
+            fed_counters = fed.metrics.report()["counters"]
+        launched_e = take()
+    for r in FED_RANKS:
+        check(np.array_equal(got_e[r], direct[r]),
+              f"cell failover: rank {r}'s stream differs from its direct "
+              f"regen")
+    check(np.array_equal(cap_stream, c4.rank_indices(0, FED_CAP_RANK)),
+          "the federated capability stream differs")
+    ck.reset_launches()
+    check(wire["index"] == 0,
+          f"capability mode moved {wire['index']} index bytes")
+    check(fed_counters.get("federation_failovers", 0) == 1,
+          f"federation counters {fed_counters}")
+    check(all(r in first_e for r in FED_RANKS),
+          f"cell failover: ranks {FED_RANKS} never failed over")
+    cell_failover_ms = (min(first_e[r] for r in FED_RANKS)
+                        - first_e["kill"]) * 1e3
+    check(cap_launched == {"index_amortized": 2},
+          f"capability: launches {cap_launched}")
+    check(launched_e == {"index_amortized": 2 * len(FED_RANKS)},
+          f"cell failover: launches {launched_e}")
+    # a live tenant migration east -> west under a streaming client
+    tenant = tenant_id_for(c4.fingerprint(include_world=False))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with Federation(c4, root=os.path.join(tmp.name, "e2"),
+                        n_shards=2, repl_feed_timeout=0.25,
+                        server_kwargs=dict(max_inflight=16)) as fed:
+            check(fed.wait_synced(30.0), "the federation never synced")
+            with ServiceIndexClient(fed.address, rank=FED_RANKS[0],
+                                    batch=batch_c, backoff_base=0.01,
+                                    reconnect_timeout=0.5) as c:
+                it = c.epoch_batches(0)
+                got = [next(it) for _ in range(per_step)]
+                t0 = time.perf_counter()
+                nd = fed.migrate_tenant(tenant, "west", deadline_s=30.0)
+                migrate_ms = (time.perf_counter() - t0) * 1e3
+                got += list(it)
+                migrated_cell = c.cell
+            mig_counters = fed.metrics.report()["counters"]
+    launched_m = take()
+    check(nd.home(tenant) == "west" and migrated_cell == "west"
+          and mig_counters.get("federation_migrations", 0) == 1,
+          f"migrate_tenant: home {nd.home(tenant)}, client in "
+          f"{migrated_cell}, counters {mig_counters}")
+    check(np.array_equal(np.concatenate(got), direct[FED_RANKS[0]]),
+          "the migrated stream has a gap or a duplicate")
+    check(launched_m == {"index_amortized": 2},
+          f"migration: launches {launched_m}")
+    print(f"sharding federation east/west, 2 shards a cell, C4 world "
+          f"{world}, batch {batch_c}: ranks {FED_RANKS} streamed "
+          f"{per_step} batches, east "
+          f"killed whole and west promoted, both laddered to west and "
+          f"finished bit-identical (launches {json.dumps(launched_e)}: each "
+          f"rank on each cell); a TrustBundle capability client (grant "
+          f"east/kid 1) regenerated rank {FED_CAP_RANK} on the card, "
+          f"launches {json.dumps(cap_launched)} (issuance and the client), "
+          f"{wire['bytes']} wire bytes and {wire['index']} index bytes "
+          f"received; migrate_tenant east -> west under a live client: "
+          f"exactly once, directory v{nd.version}, launches "
+          f"{json.dumps(launched_m)} | {card}")
+    print(f"time sharding cell failover, the kill to the first batch from "
+          f"west: {cell_failover_ms:.1f} ms (reconnect_timeout 0.5 s); "
+          f"migrate_tenant {migrate_ms:.1f} ms | {card}")
+
+    # ---- (f) the autopilot against a live plane, at the policy's own
+    # thresholds in its predictive mode: a shard whose forecast load
+    # passes hot_factor x the mean splits before its regen p99 reaches
+    # split_p99_ms
+    clock = [100.0]
+    cfg_f = PolicyConfig(predictive=True)
+    seen = []  # each tick's observation and the policy's state before it
+
+    def observe():
+        obs = ap._observe()
+        seen.append(copy.deepcopy((obs, ap.policy.state_dict())))
+        return obs
+
+    def replay(config):
+        """What a fresh policy of ``config`` decides on the last window
+        the controller observed."""
+        obs, state = copy.deepcopy(seen[-1])
+        policy = AutopilotPolicy(config, clock=lambda: clock[0])
+        policy.load_state_dict(state)
+        return [(d.kind, d.target, d.args) for d in policy.decide(obs)]
+
+    ck.reset_launches()
+    with ShardPlane(c4, SHARD_SHARDS, server_kwargs=skw) as aplane:
+        ap = Autopilot(plane=aplane, clock=lambda: clock[0], config=cfg_f,
+                       observe=observe)
+        t0 = time.perf_counter()
+        cand = ap._pick_backend(aplane.shards[0])
+        probe_s = time.perf_counter() - t0
+        ck.reset_launches()  # the probe's regens are not the path's
+        clock[0] += 1.0
+        ap.tick()  # the baseline window
+        # a hotspot: only shard 0's ranks stream epoch 0
+        hot = (0, 1)
+        c0 = ServiceIndexClient(aplane.address, rank=hot[0],
+                                batch=TENANT_BATCH, auto_batch=True)
+        try:
+            e0 = {hot[0]: np.concatenate(list(c0.epoch_batches(0)))}
+            with ServiceIndexClient(aplane.address, rank=hot[1],
+                                    batch=TENANT_BATCH) as c:
+                e0[hot[1]] = np.concatenate(list(c.epoch_batches(0)))
+            clock[0] += 1.0
+            decisions = ap.tick()
+            c0.heartbeat()
+            hint = c0._batch_hint
+            aplane.router.set_epoch(1)
+            e1 = np.concatenate(list(c0.epoch_batches(1)))
+            adopted = c0.batch
+        finally:
+            c0.close()
+        split_map = aplane.map
+        lo, hi = split_map.slices[-1]
+        after = {}
+        for r in (hot[1], lo, hi - 1, world - 1):
+            with ServiceIndexClient(aplane.address, rank=r,
+                                    batch=TENANT_BATCH) as c:
+                after[r] = np.concatenate(list(c.epoch_batches(1)))
+        status = ap.status()
+    launched_f = take()
+    got_f = [(d.kind, d.target, d.args) for d in decisions]
+    want_f = replay(cfg_f)
+    reactive = replay(dataclasses.replace(cfg_f, predictive=False))
+    hot_obs = seen[-1][0]["shards"][0]
+    check(cand == "cuda" and ap._backend_gain is not None,
+          f"the card probe answered {cand} for {ns} samples a rank")
+    check(got_f == want_f, f"the autopilot actuated {got_f}; the policy "
+          f"decides {want_f} on the window it observed")
+    tunes = [args for kind, _, args in got_f if kind == "tune"]
+    check(("split", 0, {}) in got_f and tunes
+          and tunes[0].get("batch_hint") == hint == adopted,
+          f"the autopilot decided {got_f} under the hotspot; the client "
+          f"was hinted {hint} and adopted batch {adopted}")
+    check(split_map.n_shards == SHARD_SHARDS + 1,
+          f"the split left {split_map.n_shards} shards")
+    for r, s in e0.items():
+        check(np.array_equal(s, c4.rank_indices(0, r)),
+              f"autopilot: rank {r}'s epoch 0 differs")
+    check(np.array_equal(e1, c4.rank_indices(1, hot[0])),
+          "autopilot: the adopting client's epoch 1 differs")
+    for r, s in after.items():
+        check(np.array_equal(s, c4.rank_indices(1, r)),
+              f"autopilot: rank {r}'s epoch 1 after the split differs")
+    ck.reset_launches()
+    print(f"sharding autopilot on a live {SHARD_SHARDS}-shard plane at the "
+          f"policy's defaults, predictive: the card probe picked {cand} "
+          f"for {ns} samples a rank (gain {ap._backend_gain}, "
+          f"{probe_s:.2f} s); under a hotspot on ranks {hot} (shard 0 "
+          f"served {hot_obs['served']} batches in the window, its regen "
+          f"p99 {hot_obs['p99_ms']:.3f} ms against split_p99_ms "
+          f"{cfg_f.split_p99_ms}) it decided {json.dumps(got_f)}, what the "
+          f"policy decides on that window; the reactive policy would have "
+          f"decided {json.dumps(reactive)}; the client adopted batch "
+          f"{adopted}, shard 0 split to {split_map.slices}, every epoch-1 "
+          f"stream bit-identical; launches {json.dumps(launched_f)}; "
+          f"status seq {status['policy']['seq']} | {card}")
+
+    # ---- (g) fleetsim over this phase's calibration
+    wal_p50 = float(np.median([h["p50_ms"] for h in wal if h["count"]]
+                              or [0.0]))
+    wal_p99 = float(np.median([h["p99_ms"] for h in wal if h["count"]]
+                              or [0.0]))
+    bar = [f + d for f, d in zip(freeze, drain)]
+    rtt_ms = [x / 1e3 for x in rtt_router]
+    channels = {
+        "rpc": [pct(rtt_ms, 50), sigma_of(pct(rtt_ms, 50),
+                                          pct(rtt_ms, 99))],
+        "regen": [pct(regen_ms, 50), sigma_of(pct(regen_ms, 50),
+                                              pct(regen_ms, 99))],
+        "wal_fsync": [wal_p50, sigma_of(wal_p50, wal_p99)],
+        "barrier": [pct(bar, 50), sigma_of(pct(bar, 50), pct(bar, 99))],
+    }
+    # the dedup fold's host rate: a small deduped regen on the host, a
+    # fresh spec each time (a spec keeps its folded epochs)
+    dedup_ms = min(timed_ms(lambda: pt.SamplingSpec.deduped(
+        (40_000, 30_000, 26_000), epoch_samples=DEDUP_DRAWS, seed=7,
+        window=W, backend="cpu").rank_indices(0, 0)) for _ in range(3))
+    model = autotune.cost_model()
+    check(model is not None, "autotune.cost_model() found no card")
+    regen_cost = dict(model, weighted_rate_mult=w_ms / u_ms,
+                      dedup_host_rate_ms=dedup_ms / DEDUP_DRAWS)
+    record = {"kind": fs.latency.RECORD_KIND,
+              "source": "chip_smoke.py --sharding",
+              "device": {"platform": "gpu",
+                         "name": card.split(",")[0].strip(),
+                         "power_limit": card.split(",")[-1].strip()},
+              "channels": channels, "regen_cost": regen_cost}
+    cal = fs.Calibration(**{k: tuple(v) for k, v in channels.items()})
+    rcm = fs.RegenCostModel(**regen_cost)
+
+    def simulate():
+        sim = fs.FleetSim(world=world, n_shards=SHARD_SHARDS, n=n, seed=0,
+                          cells=("east", "west"), backend="cuda",
+                          workload=fs.workload.hotspot(
+                              50.0, hot_lo=0, hot_hi=world // SHARD_SHARDS,
+                              factor=8.0, at_s=5.0, ramp_s=5.0),
+                          latency=fs.LatencyModel(seed=0, calibration=cal),
+                          regen_cost=rcm)
+        sim.inject_cell_kill(at_s=20.0)
+        return sim.run(40)
+
+    t0 = time.perf_counter()
+    sim = simulate()
+    sim_s = time.perf_counter() - t0
+    again = simulate()
+    check(sim.trace.decision_log() == again.trace.decision_log(),
+          "fleetsim: one seed gave two decision logs")
+    counts = {}
+    for d in sim.trace.decisions():
+        counts[d["kind"]] = counts.get(d["kind"], 0) + 1
+    out = Path(__file__).resolve().parent / "runs"
+    out.mkdir(exist_ok=True)
+    (out / "fleetsim_calibration.json").write_text(
+        json.dumps(record, indent=1, sort_keys=True))
+    print(f"fleetsim calibration {json.dumps(record, sort_keys=True)}")
+    print(f"sharding fleetsim FleetSim(cells=east/west, world {world}, "
+          f"{SHARD_SHARDS} shards, a hotspot, east killed at 20 s) over "
+          f"this phase's calibration, 40 ticks in {sim_s:.3f} s: decisions "
+          f"{json.dumps(counts, sort_keys=True)}, cell {sim.cell}, shards "
+          f"{len(sim.live_shards())}, the decision log equal on a rerun | "
+          f"{card}")
+    tmp.cleanup()
+    print(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return launches21, errs
 
 
 def main() -> None:
@@ -2953,6 +3818,23 @@ def main() -> None:
         print(f"build: {time.perf_counter() - t0:.2f} s")
         launches, errs = service_phase(
             card, float(nvidia_smi("clocks.max.sm").split()[0]))
+        print(json.dumps({"launches": launches, "errors": errs}))
+        return
+    if sys.argv[1:2] == ["--sharding"]:
+        from partiallyshuffledistributedsampler_tpu_torch.ops import (
+            cuda_kernel as ck,
+        )
+
+        card = nvidia_smi("name,power.limit")
+        print(card)
+        t0 = time.perf_counter()
+        ck.build()
+        print(f"build: {time.perf_counter() - t0:.2f} s")
+        launches, errs = sharding_phase(card)
+        for name in SLICE13:
+            check(launches.get(name, 0) > 0 and errs.get(name) == 0,
+                  f"kernel {name} of the slice-13 main path: launches "
+                  f"{launches.get(name, 0)}, max_abs_err {errs.get(name)}")
         print(json.dumps({"launches": launches, "errors": errs}))
         return
     if sys.argv[1:2] == ["--sampling"]:
@@ -4124,6 +5006,18 @@ def main() -> None:
               f"was not held against its plain version")
         stats[name]["err"] = max(stats[name]["err"], errs20[name])
 
+    # ------------------------------------------- slice-13 main path
+    # 21: the sharded plane, federation and the autopilot on the card
+    # (counters reset around each case inside; launches21 sums them)
+    launches21, errs21 = sharding_phase(card)
+    print(f"kernels (slice-13 main path): {json.dumps(launches21)}")
+    for name in SLICE13:
+        check(launches21[name] > 0,
+              f"kernel {name} was not launched on the slice-13 main path")
+        check(name in errs21, f"kernel {name} of the slice-13 main path "
+              f"was not held against its plain version")
+        stats[name]["err"] = max(stats[name]["err"], errs21[name])
+
     # ---------------------------------------------------------------- 6
     floor_ms = launch_floor_ms(max_sm_mhz)
     print(f"launch floor (empty kernel, back to back): {floor_ms:.4f} ms | "
@@ -4648,7 +5542,8 @@ def main() -> None:
             # the count over the main paths' runs
             "launches": sum(run.get(name, 0) for run in (
                 launches, launches2, launches3, launches3b, launches4,
-                launches8, launches9, launches10, launches19, launches20)),
+                launches8, launches9, launches10, launches19, launches20,
+                launches21)),
             "max_abs_err": stats[name]["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

@@ -28,7 +28,11 @@ injection (``faults/``), tracing and metrics export (``telemetry/``,
 policies and sampler-state files (``utils/``).  The index service
 (``service/``, ``tenancy/``, ``durability/``) serves each rank's stream
 from one daemon that regenerates on the card, to many clients, with the
-JAX package's frames, WAL and snapshots byte for byte.
+JAX package's frames, WAL and snapshots byte for byte; ``sharding/``
+spreads it over shards behind a router, ``federation/`` over cells with
+shipped WALs and per-cell capability keys, ``autopilot/`` tunes and
+reshapes a live plane, and ``fleetsim/`` simulates the autopilot over a
+fleet with the card's measured latencies.
 """
 
 from .ops import (  # noqa: F401

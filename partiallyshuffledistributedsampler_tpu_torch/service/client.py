@@ -1669,18 +1669,15 @@ class ServiceIndexClient:
             raise CapabilityError(f"capability refused: {problem}")
 
     def _cap_signature_ok(self, cap: EpochCapability) -> bool:
-        """The HMAC check: a plain secret verifies directly.  A federated
-        ``TrustBundle``/``CellKeyring`` (a secret with ``secret_for``,
-        docs/FEDERATION.md "Federated capabilities") needs ``federation/``,
-        which this package does not have yet: it raises
-        ``NotImplementedError``."""
+        """Dispatch the HMAC check on the secret's shape: a federated
+        ``TrustBundle``/``CellKeyring`` resolves ``(cap.cell, cap.kid)``
+        to a per-cell key (an unknown cell or a retired kid raises the
+        loud re-issue ``CapabilityError``); a plain secret verifies
+        directly (docs/FEDERATION.md "Federated capabilities")."""
         secret = self.capability_secret
         if hasattr(secret, "secret_for"):
-            raise NotImplementedError(
-                "federated capability secrets (a TrustBundle or CellKeyring) "
-                "need federation/, which is not ported to this package yet "
-                "(ROADMAP.md, Queue A item 7)"
-            )
+            from ..federation.keys import verify_capability
+            return verify_capability(secret, cap)
         return cap.verify(secret)
 
     def capability_epoch_batches(self, epoch: int, *, spec=None,

@@ -960,5 +960,143 @@ def test_sampling_dedup_check_fault_never_double_serves():
 
 
 # ------------------------------------------------- federation fault matrix
-# The JAX file's three federation cases (cell shipping, fencing and
-# migration faults) wait for federation/ (ROADMAP.md, Queue A item 7).
+def test_cell_ship_torn_mid_record_never_double_applies(tmp_path):
+    """A cross-cell shipping frame torn mid-record (``cell.ship``)
+    forces the shipper through its reconnect + re-SYNC path; the
+    receiving cell's overlap check must make the replay idempotent —
+    the remote standby's folded state equals the home primary's
+    exactly, nothing applied twice."""
+    from partiallyshuffledistributedsampler_tpu_torch.federation import WalShipper
+
+    spec = plain_spec(world=1)
+    ref = np.asarray(spec.rank_indices(1, 0))
+    primary = IndexServer(spec, wal_dir=str(tmp_path / "east"))
+    remote = IndexServer(spec, role="standby", repl_feed_timeout=60.0,
+                         wal_dir=str(tmp_path / "west"))
+    plan = F.FaultPlan([F.FaultRule(site="cell.ship", kind="torn_frame",
+                                    nth=2, count=1)])
+    shipper = None
+    try:
+        remote.start()
+        primary.start()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            with plan:
+                shipper = WalShipper(
+                    primary._repl_log, remote.address,
+                    cell_id="east", target_cell="west",
+                    state_fn=primary._repl_sync_state,
+                    term_fn=lambda: primary.term,
+                    on_fenced=lambda term: None,
+                    metrics=primary.metrics)
+                shipper.start()
+                assert shipper.synced.wait(10.0)
+                with ServiceIndexClient(primary.address, rank=0, batch=37,
+                                        backoff_base=0.01,
+                                        reconnect_timeout=10.0) as client:
+                    got = client.epoch_indices(1)
+                deadline = time.monotonic() + 10.0
+                while shipper.shipped_lsn < primary._repl_log.lsn:
+                    assert time.monotonic() < deadline, (
+                        "shipper never drained after the torn frame")
+                    time.sleep(0.01)
+    finally:
+        if shipper is not None:
+            shipper.stop()
+        primary.stop()
+        remote.stop()
+    assert plan.fired("cell.ship") > 0, "fault never fired; vacuous"
+    assert np.array_equal(got, ref)
+    # never double-applied: the remote fold IS the primary's state
+    assert remote._cursors == primary._cursors
+    assert remote.epoch == primary.epoch
+    resyncs = primary.metrics.report()["counters"].get(
+        "cell_ship_resyncs", 0)
+    assert resyncs >= 1, "the torn frame never forced a re-SYNC"
+
+
+def test_cell_fence_fault_leaves_exactly_one_writable_cell(tmp_path):
+    """An injected ``cell.fence`` fault skips one server during the
+    whole-cell fence at promotion.  The skipped server must self-fence
+    at its first newer-term request (``_term_refusal``), so the end
+    state is reached either way: exactly one writable cell."""
+    from partiallyshuffledistributedsampler_tpu_torch.federation import Federation
+    from partiallyshuffledistributedsampler_tpu_torch.service import protocol as P
+
+    spec = plain_spec(world=2)
+    plan = F.FaultPlan([F.FaultRule(site="cell.fence", kind="error",
+                                    nth=1, count=1)])
+    with Federation(spec, root=str(tmp_path), n_shards=2) as fed:
+        fed.wait_synced()
+        assert fed.wait_shipped()
+        with plan:
+            fed.promote("west")  # east alive: the fence IS the guard
+        assert plan.fired("cell.fence") == 1, "fault never fired; vacuous"
+        m = fed.metrics.report()["counters"]
+        assert m.get("cell_fence_faults", 0) == 1
+        assert m.get("cell_fenced", 0) == len(fed.cells["east"].servers()) - 1
+        term = max(s.term for s in fed.cells["west"].mirrors)
+        fenced = []
+        for srv in fed.cells["east"].servers():
+            # a post-promotion client carries the new term; the skipped
+            # zombie fences itself on the spot, the rest were fenced
+            sock = socket.create_connection(srv.address, timeout=5.0)
+            try:
+                P.send_msg(sock, P.MSG_HELLO,
+                           {"proto": P.PROTOCOL_VERSION, "rank": 0,
+                            "batch": 8, "term": term})
+                msg, hdr, _ = P.recv_msg(sock)
+            finally:
+                sock.close()
+            fenced.append((msg, hdr.get("code")))
+        assert all(m_ == P.MSG_ERROR and c == "fenced"
+                   for m_, c in fenced), fenced
+        # exactly one writable cell remains: west serves
+        with ServiceIndexClient(fed.cells["west"].address, rank=0,
+                                batch=37, backoff_base=0.01,
+                                reconnect_timeout=10.0) as client:
+            got = client.epoch_indices(0)
+    assert np.array_equal(got, np.asarray(spec.rank_indices(0, 0)))
+
+
+def test_cell_migrate_fault_aborts_cleanly_and_retry_succeeds(tmp_path):
+    """An injected ``cell.migrate`` fault during the cutover prepare
+    phase aborts CLEANLY: the home cell unfreezes, nothing flipped,
+    nothing fenced — and the retried migration succeeds with the
+    established client's stream staying exactly-once end to end."""
+    from partiallyshuffledistributedsampler_tpu_torch.federation import (
+        Federation,
+        MigrationAborted,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.tenancy import tenant_id_for
+
+    spec = plain_spec(world=1)
+    tenant = tenant_id_for(spec.fingerprint(include_world=False))
+    ref = np.asarray(spec.rank_indices(0, 0))
+    plan = F.FaultPlan([F.FaultRule(site="cell.migrate", kind="error",
+                                    count=1)])
+    with Federation(spec, root=str(tmp_path)) as fed:
+        fed.wait_synced()
+        with ServiceIndexClient(fed.address, rank=0, batch=23,
+                                backoff_base=0.01,
+                                reconnect_timeout=5.0) as client:
+            it = client.epoch_batches(0)
+            got = [next(it)]
+            with plan:
+                with pytest.raises(MigrationAborted):
+                    fed.migrate_tenant(tenant, "west")
+            assert plan.fired("cell.migrate") == 1, "vacuous"
+            d = fed.directory()
+            assert d.home(tenant) == "east", "abort must not flip"
+            assert d.version == 1, "abort must not bump the directory"
+            m = fed.metrics.report()["counters"]
+            assert m.get("federation_migrate_aborts", 0) == 1
+            assert m.get("cell_fenced", 0) == 0, "abort must not fence"
+            got.append(next(it))  # unfrozen: the home cell still serves
+            nd = fed.migrate_tenant(tenant, "west")  # the retry succeeds
+            assert nd.home(tenant) == "west"
+            for arr in it:
+                got.append(arr)
+    stream = np.concatenate(got)
+    assert np.array_equal(stream, ref), (
+        "abort + retry duplicated or skipped indices")

@@ -717,8 +717,89 @@ def test_flight_dump_and_sink_share_the_durable_write_path(tmp_path,
 
 
 # ------------------------------------------------ shipped-tail crash matrix
-# The JAX file's shipped-tail case drives federation/'s cell shipping; it
-# waits for that port (ROADMAP.md, Queue A item 7).
+def test_shipped_wal_tail_kill_at_any_byte(tmp_path):
+    """The cross-cell variant of the kill-at-any-byte matrix
+    (docs/FEDERATION.md): the home cell's WAL is SHIPPED to a remote
+    standby that write-throughs every applied record into its own
+    segment WAL.  Truncate the RECEIVING cell's copy at every byte
+    offset: recovery is folded-prefix-exact against the shipped
+    records, never wedged — and at sampled offsets a daemon restarted
+    over the cut copy serves bit-identical resumed streams.  This is
+    the artifact the DR law recovers from when home + standby + router
+    die together."""
+    from partiallyshuffledistributedsampler_tpu_torch.federation import WalShipper
+
+    spec = plain_spec(world=2)
+    east = str(tmp_path / "east")
+    west = str(tmp_path / "west")
+    primary = IndexServer(spec, wal_dir=east)
+    remote = IndexServer(plain_spec(world=2), role="standby",
+                         repl_feed_timeout=60.0, wal_dir=west)
+    remote.start()
+    primary.start()
+    shipper = WalShipper(primary._repl_log, remote.address,
+                         cell_id="east", target_cell="west",
+                         state_fn=primary._repl_sync_state,
+                         term_fn=lambda: primary.term,
+                         on_fenced=lambda term: None,
+                         metrics=primary.metrics)
+    shipper.start()
+    # sync BEFORE traffic: the receiving WAL then holds the dense
+    # record stream from lsn 1 (nothing is folded into the bootstrap)
+    assert shipper.synced.wait(10.0)
+    with ServiceIndexClient(primary.address, rank=0, batch=17) as c:
+        c.set_epoch(3)
+    for r in range(2):
+        c = ServiceIndexClient(primary.address, rank=r, batch=17)
+        it = c.epoch_batches(3)
+        for _ in range(3):
+            next(it)
+        c.close()
+    deadline = time.monotonic() + 10.0
+    while shipper.shipped_lsn < primary._repl_log.lsn:
+        assert time.monotonic() < deadline, "shipped tail never drained"
+        time.sleep(0.01)
+    shipper.stop()
+    primary.kill()
+    remote.kill()
+    full = _read_all(west)
+    assert full, "nothing was shipped into the receiving WAL"
+    lsns = [int(r["lsn"]) for r in full]
+    assert lsns == list(range(1, len(full) + 1)), (
+        "the shipped copy is not a dense 1-based sequence")
+    folds = {0: _fold([])}
+    for i in range(len(full)):
+        folds[int(full[i]["lsn"])] = _fold(full[:i + 1])
+    total = wal_total_bytes(west)
+    cut_dir = str(tmp_path / "cut")
+    resume_at = sorted({0, 1, total // 3, total - 1, total})
+    refs = {r: np.asarray(spec.rank_indices(3, r)) for r in range(2)}
+    for cut in range(total + 1):
+        shutil.rmtree(cut_dir, ignore_errors=True)
+        truncate_wal_copy(west, cut_dir, cut)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # torn-tail warns at most cuts
+            fresh = IndexServer(plain_spec(world=2), wal_dir=cut_dir)
+            stats = recover_unstarted(fresh)
+        lsn = last_valid_lsn(cut_dir)
+        expect = folds[lsn][None] if lsn else {"epoch": 0, "cursors": {}}
+        assert fresh.epoch == expect["epoch"], f"cut={cut}"
+        assert fresh._cursors == expect["cursors"], f"cut={cut}"
+        assert stats["last_lsn"] in (0, lsn), f"cut={cut}"
+        if cut in resume_at:
+            host, port = fresh.start()
+            try:
+                for r in range(2):
+                    with ServiceIndexClient((host, port), rank=r,
+                                            batch=41) as c:
+                        got = np.concatenate(list(c.epoch_batches(3)))
+                    assert np.array_equal(got, refs[r]), (
+                        f"shipped-tail recovery diverged at cut={cut}")
+            finally:
+                fresh.stop()
+        else:
+            fresh._wal.close(sync=False)
+
 
 
 # ------------------------------------------------- across the two packages

@@ -1779,3 +1779,88 @@ def test_two_tenants_regenerate_at_once_on_cuda():
     for key, want in host.items():
         np.testing.assert_array_equal(card[key], want)
     assert launched == {"index_amortized": 4, "mixture_fused": 4}
+
+
+# ------------------------------------------- the sharded plane, autopilot
+def _plane_streams(spec, ranks, epoch=1):
+    """Each rank's stream through a 3-shard plane's router, and the
+    plane's shards' cached arrays."""
+    from partiallyshuffledistributedsampler_tpu_torch.service import (
+        ServiceIndexClient,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.sharding import (
+        ShardPlane,
+    )
+
+    got = {}
+    with ShardPlane(spec, 3, standby=True) as plane:
+        for r in ranks:
+            with ServiceIndexClient(plane.address, rank=r, batch=1000,
+                                    spec=spec) as c:
+                got[r] = c.epoch_indices(epoch)
+                assert c.address != plane.router.address
+        cached = [a for s in plane.shards for a in s._cache.values()]
+    return got, cached
+
+
+@pytest.mark.parametrize("kind", ["plain", "mixture", "shard", "sampling"])
+def test_shard_plane_on_cuda_equals_cpu(kind):
+    """A ``ShardPlane`` on ``backend="cuda"`` serves every rank the bytes
+    the same plane on the host serves, one regen of the spec's kernels an
+    (epoch, rank) on the shard that owns it."""
+    ck.reset_launches()
+    card, _ = _plane_streams(_service_specs("cuda")[kind], range(4))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ck.launches.items() if v}
+    host, _ = _plane_streams(_service_specs("cpu")[kind], range(4))
+    for r, want in host.items():
+        assert card[r].dtype == want.dtype
+        np.testing.assert_array_equal(card[r], want)
+    per_regen = {"plain": {"index_amortized": 1},
+                 "mixture": {"mixture_fused": 1},
+                 "shard": {"index_amortized": 1, "shard_row_keys": 1,
+                           "shard_expand": 1},
+                 "sampling": {"weighted_stream": 1}}[kind]
+    assert launched == {k: 4 * v for k, v in per_regen.items()}
+
+
+def test_a_shard_on_cuda_caches_no_page_locked_memory():
+    """Each shard's regens are read back into pinned buffers; every
+    ``ShardServer`` caches pageable copies, so no cached epoch of the
+    plane stays page-locked."""
+    import warnings
+
+    spec = _service_specs("cuda")["plain"]
+    got, cached = _plane_streams(spec, range(4))
+    for r, s in got.items():
+        np.testing.assert_array_equal(s, spec.rank_indices(1, r))
+    assert len(cached) == 4
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the cached arrays are read-only
+        assert not any(torch.from_numpy(a).is_pinned() for a in cached)
+
+
+def test_autopilot_card_probe_answers_cuda_for_c4():
+    """The autopilot's backend arm, past its size gate, asks the port's
+    ``utils/autotune.pick_backend``: for C4's per-rank share (1e9 / 256)
+    the card's measured line wins and the answer is "cuda"."""
+    from partiallyshuffledistributedsampler_tpu_torch import (
+        PartialShuffleSpec,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.autopilot import (
+        Autopilot,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.sharding import (
+        ShardPlane,
+    )
+
+    class _Lead:
+        spec = PartialShuffleSpec.plain(1_000_000_000, window=8192,
+                                        world=256, backend="cuda")
+
+    per_rank = 1_000_000_000 // 256
+    assert per_rank > Autopilot.BACKEND_PROBE_MIN_SAMPLES
+    with ShardPlane(_service_specs("cuda")["plain"], 2) as plane:
+        ap = Autopilot(plane=plane, clock=lambda: 0.0)
+        assert ap._pick_backend(_Lead) == "cuda"
+        assert ap._backend_gain is not None and ap._backend_gain > 0.0

@@ -273,8 +273,14 @@ def test_dump_api_and_budget(traced):
     T.configure(max_dumps=3)
     paths = [T.auto_dump(f"r{i}") for i in range(5)]
     assert sum(p is not None for p in paths) == 2  # 1 manual + 2 automatic
+    capacity = T.recorder()._ring.maxlen
     rec = T.configure(capacity=4).recorder
-    assert rec is T.recorder() and len(T.snapshot()) <= 4
+    try:
+        assert rec is T.recorder() and len(T.snapshot()) <= 4
+    finally:
+        # reset() keeps a configured ring size: leave the ring this case
+        # found for the next case this process runs, of any file
+        T.configure(capacity=capacity)
 
 
 def test_stall_error_triggers_flight_dump(traced):
