@@ -125,7 +125,8 @@ plain version and its bound.  Every failure exits non-zero.
   images, its regens held the same way, then its loop timed the same
   way.  The phase alone: ``python3 chip_smoke.py --train``.
   Phase 6 also times the masked per-source mixture (plain torch) at M1
-  with the kernels off and for a spec with a source past 2^31.
+  with ``fused=False`` and for a spec with a source past 2^31, beside its
+  kernel since slice 15.
 
 * Slice 11, signed epoch capabilities and the control plane (phase 19,
   ``capability_phase``): for C4 1B, M1, S1, W1 and a 1e8-horizon
@@ -192,6 +193,21 @@ plain version and its bound.  Every failure exits non-zero.
   reshard barrier, the shard and cell failover times, wire bytes in
   capability mode, launches.
   The phase alone: ``python3 chip_smoke.py --sharding``.
+* Slice 15, the masked per-source mixture law on the card (phase 22):
+  ``mixture_fused_wide`` (``csrc/mixture_kernels.cu``) takes every
+  mixture with a source of 2^31 or more and every ``fused=False`` regen.
+  The main path, with its own counter reset: the mixture 3e9/1e9/5e8 at
+  60/25/15 (window 8192, block 1024, 24 rounds; no shape cut) through
+  ``mixture_epoch_indices_cuda`` at world 256 (17.6M lanes) and world 8
+  (562.5M lanes, 4.5 GB of int64), the elastic remainder after a reshard
+  128 -> 256, one regen from a device triple, M1 with ``fused=False``
+  (these under ``set_sync_debug_mode("error")``), then 1M random int64
+  positions through ``mixture_stream_at_cuda``: one launch a regen, each
+  held against the kernel's plain version (world 8 on sampled lanes, as
+  M1's world 8 in phase 3c).  Phase 6 times the kernel beside its plain
+  version and beside the masked torch loop it replaced, also on a 10B
+  mixture (6e9/2.5e9/1.5e9) whose web source passes 2^32, and beside
+  ``mixture_fused`` on M1, M2 and M3.
 
 ``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
 the ``shard_row_keys`` and ``shard_expand`` times, the elastic remainder
@@ -222,7 +238,7 @@ N_WIDE1 = 2**31 + 5000  # the least wide space, agreed at world 1 (17 GB)
 SLICE1 = ("index_general", "index_amortized")
 SLICE2 = ("index_amortized", "index_general_wide", "index_amortized_wide")
 #: the slice-3 kernels, and the index kernels its mixture path never runs
-SLICE3 = ("mixture_source_keys", "mixture_fused")
+SLICE3 = ("mixture_source_keys", "mixture_fused", "mixture_fused_wide")
 #: round counts of slice 6: above the old limit of 64, SPEC.md §2's ~102
 #: and ~121, and the new limit (ck.MAX_ROUNDS)
 HIGH_ROUNDS = (65, 102, 121)
@@ -407,9 +423,18 @@ T1_TRAIN_ROWS, T1_TRAIN_STEPS = 1 << 20, 40
 #: the kernels the slice-10 main path launches
 SLICE10 = ("index_amortized", "mixture_fused")
 #: a mixture with a source past 2^31 (10B-class web, code, books), which
-#: takes only the masked per-source route, timed beside M1's
+#: only the masked per-source law takes (mixture_fused_wide; slice 15)
 MASKED_BIG_SOURCES = (3_000_000_000, 1_000_000_000, 500_000_000)
 MASKED_BIG_WEIGHTS = (60, 25, 15)
+#: a mixture with a source past 2^32 (config 5's 10B space: web, code,
+#: books), whose web source's pass and window splits are 64-bit
+MASKED_10B_SOURCES = (6_000_000_000, 2_500_000_000, 1_500_000_000)
+#: the masked law's work per lane is mixture_fused's (MIX_LANE_OPS, and
+#: WIDE_OPS at uint64 positions); a split that the law itself must make
+#: in 64 bits adds the remainder's multiply and subtract as 64-bit ones
+#: (a 64-bit / or % counts as one): the j split where n_s or j reaches
+#: 2^32, the window split where u does.  Counted from the run's data
+MIX_SPLIT64_OPS = 2
 #: the masked per-source loop (port ops/mixture.py ``_masked_mixture_eval``
 #: over ``_amortized_source_perm``), counted as MIX_LANE_OPS is: once a
 #: lane, the position, block, slot and v2 rotation (14) and its source
@@ -423,6 +448,8 @@ MASKED_BIG_WEIGHTS = (60, 25, 15)
 #: pass-folded key (28, as in MIX_LANE_OPS) and the outer, inner and tail
 #: keys and rounds
 MASKED_LANE_OPS, MASKED_SOURCE_LANE_OPS, MASKED_PASS_KEY_OPS = 15, 24, 28
+#: the kernel the slice-15 main path launches
+SLICE15 = ("mixture_fused_wide",)
 #: the kernels the slice-11 main path (the capability replays) launches
 SLICE11 = ("index_amortized", "index_positions", "mixture_fused",
            "shard_row_keys", "shard_expand", "weighted_stream")
@@ -643,6 +670,11 @@ def regen_report() -> None:
     cases.append(("mixture regen per epoch M1 world=256",
                   lambda: pt.mixture_epoch_indices_cuda(m1, 0, 1, 5, 256),
                   20))
+    big = pt.MixtureSpec(MASKED_BIG_SOURCES, MASKED_BIG_WEIGHTS, windows=W)
+    cases.append(("mixture regen per epoch 3e9/1e9/5e8 at 60/25/15 "
+                  "world=256",
+                  lambda: pt.mixture_epoch_indices_cuda(big, 0, 1, 5, 256),
+                  5))
     for n in (N_C4, N_LLAMA):
         ns128, _ = core.shard_sizes(n, 128, False)
         layers = [(128, ns128 // 2)]
@@ -4105,22 +4137,27 @@ def main() -> None:
 
     def mix_lanes(spec, es, world, rank, seed=0, epoch=1):
         """Lanes of this rank's mixture stream that are body lanes of
-        their source (two bijections) or tail lanes (one), and the lanes
-        in or near a source's tail window: this run's data, by the plain
-        law on the card, in chunks."""
+        their source (two bijections) or tail lanes (one), the lanes in or
+        near a source's tail window, and the law's 64-bit splits (the j
+        split where n_s or j reaches 2^32, the window split of a body lane
+        where u does): this run's data, by the plain law on the card, in
+        chunks."""
         ns, wide = mix_sizes(spec, es, world)
+        n_s = torch.tensor(spec.sources, device=dev)
         body_s = torch.tensor([(n // w) * w for n, w in zip(spec.sources,
                                                             spec.windows)],
                               device=dev)
-        tail, near = 0, []
+        tail, split, near = 0, 0, []
         for c0 in range(0, ns, 25_000_000):
             t = torch.arange(c0, min(ns, c0 + 25_000_000), device=dev)
-            s, _pas, u = M.lane_draws(rank + world * t, spec, seed, epoch,
-                                      wide=wide)
+            s, pas, u = M.lane_draws(rank + world * t, spec, seed, epoch,
+                                     wide=wide)
             d = u - body_s[s]
             tail += int((d >= 0).sum())
             near.append(t[d >= -64])
-        return ns - tail, tail, torch.cat(near)
+            split += int(((n_s[s] >= 2**32) | (pas * n_s[s] + u >= 2**32))
+                         .sum()) + int(((d < 0) & (u >= 2**32)).sum())
+        return ns - tail, tail, torch.cat(near), split
 
     def mix_fused(spec, rank, world, es=None, seed=0, epoch=1, **kw):
         """The mixture kernel's output for a rank, and its plain version
@@ -4175,21 +4212,60 @@ def main() -> None:
         hold("mixture_fused", got,
              pt.mixture_epoch_indices_cuda(spec, 0x1_0000_0007, 3, 5, 256),
              f"{label} world=256 device triple against scalars")
-    before = dict(ck.launches)
+    # fused=False: the masked law's kernel, mixture_fused_wide, once
+    ck.reset_launches()
     masked = pt.mixture_epoch_indices_cuda(m1, 0, 1, 5, 256, fused=False)
-    ok = (ck.launches == before and masked.is_cuda
-          and torch.equal(masked, pt.mixture_epoch_indices_cuda(m1, 0, 1, 5,
-                                                                256)))
-    print(f"mixture fused=False route (the masked torch evaluator on the "
-          f"card, no kernel) equals the kernel route: {ok}")
-    check(ok, "the masked mixture route differs or launched a kernel")
+    ran = {k: v for k, v in ck.launches.items() if v}
+    print(f"mixture fused=False route launches {ran}")
+    check(ran == {"mixture_fused_wide": 1},
+          "the fused=False mixture route did not launch mixture_fused_wide "
+          "exactly once")
+    ns256, wide256 = mix_sizes(m1, None, 256)
+    hold("mixture_fused_wide", masked, pt.mixture_epoch_indices_cuda(
+        m1, 0, 1, 5, 256), "M1 fused=False world=256 rank=5 against "
+         "mixture_fused")
+    hold("mixture_fused_wide", masked, ck.mixture_fused_wide_ref(
+        None, m1, 0, 1, rank=5, world=256, num_samples=ns256,
+        wide_pos=wide256, device=dev), "M1 fused=False world=256 rank=5 "
+         f"(all {ns256} lanes)")
+    # a source past 2^31: every lane of a world-4096 rank in the law's
+    # variants, and a 12-source spec past the fold (mixture_source_keys
+    # first)
+    big = pt.MixtureSpec(MASKED_BIG_SOURCES, MASKED_BIG_WEIGHTS, windows=W)
+    ns4k, _ = mix_sizes(big, None, 4096)
+    for label, spec, kw in (
+            ("v2", big, {}), ("blocked", big, dict(partition="blocked")),
+            ("shuffle=False", big, dict(shuffle=False)),
+            ("order_windows=False", big, dict(order_windows=False)),
+            ("pattern_version=1", pt.MixtureSpec(
+                MASKED_BIG_SOURCES, MASKED_BIG_WEIGHTS, windows=W,
+                pattern_version=1), {})):
+        args = dict(rank=7, world=4096, num_samples=ns4k, wide_pos=True,
+                    **kw)
+        hold("mixture_fused_wide",
+             ck.mixture_fused_wide(None, spec, 0, 1, **args),
+             ck.mixture_fused_wide_ref(None, spec, 0, 1, device=dev, **args),
+             f"3e9/1e9/5e8 {label} world=4096 rank=7 (all {ns4k} lanes)")
+    s12 = pt.MixtureSpec([2**31 + 1000 * i for i in range(12)],
+                         [1 + i % 5 for i in range(12)], windows=W)
+    check(not ck.mixture_folds(s12, 24), "12 wide sources fold their keys")
+    ns12, _ = mix_sizes(s12, None, 4096)
+    ck.reset_launches()
+    got = pt.mixture_epoch_indices_cuda(s12, 0, 1, 7, 4096)
+    ran = {k: v for k, v in ck.launches.items() if v}
+    check(ran == {"mixture_source_keys": 1, "mixture_fused_wide": 1},
+          f"a 12-source wide regen launched {ran}")
+    hold("mixture_fused_wide", got, ck.mixture_fused_wide_ref(
+        None, s12, 0, 1, rank=7, world=4096, num_samples=ns12, wide_pos=True,
+        device=dev), f"12 sources of 2^31+ world=4096 rank=7 (keys buffer "
+         f"from mixture_source_keys; all {ns12} lanes)")
     # world 8: 125M lanes, held on >= 1M sampled lanes and every lane in or
     # near a source's tail window, against the plain random-access law
     ns8, _ = mix_sizes(m1, None, 8)
     before = ck.launches["mixture_fused"]
     out = pt.mixture_epoch_indices_cuda(m1, 0, 1, 3, 8)
     check(ck.launches["mixture_fused"] == before + 1, "M1 world 8: no kernel")
-    _b, _t, near = mix_lanes(m1, None, 8, 3)
+    _b, _t, near, _sp = mix_lanes(m1, None, 8, 3)
     lanes = torch.unique(torch.cat([
         torch.from_numpy(np.random.default_rng(2).choice(
             ns8, 1_000_000, replace=False)).to(dev),
@@ -5058,6 +5134,76 @@ def main() -> None:
               f"was not held against its plain version")
         stats[name]["err"] = max(stats[name]["err"], errs21[name])
 
+    # ------------------------------------------- slice-15 main path
+    # 22: mixtures with a source past 2^31, and fused=False, through the
+    # entry points: one mixture_fused_wide launch a regen (the keys of
+    # S = 3 fold), no host sync but random access's read of its positions
+    ns_big, _ = mix_sizes(big, None, 256)
+    ns_big8, _ = mix_sizes(big, None, 8)
+    layers15 = [(128, mix_sizes(big, None, 128)[0] // 2)]
+    rand15 = torch.from_numpy(np.random.default_rng(15).integers(
+        -2**40, 2**40, 1_000_000)).to(dev)
+    t15 = triple_of(0, 1)
+    for spec in (big, m1):  # the tables go to the card before the run
+        ck.mixture_tables(spec, dev)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t_all = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w256 = pt.mixture_epoch_indices_cuda(big, 0, 1, 5, 256)
+        w8 = pt.mixture_epoch_indices_cuda(big, 0, 1, 3, 8)
+        rest15 = pt.mixture_elastic_indices_cuda(big, 0, 1, 5, 256, layers15)
+        tri15 = pt.mixture_epoch_indices_cuda(big, None, None, 5, 256,
+                                              triple=t15)
+        m1_masked = pt.mixture_epoch_indices_cuda(m1, 0, 1, 5, 256,
+                                                  fused=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rand_ids = pt.mixture_stream_at_cuda(rand15, big, 0, 1)
+    torch.cuda.synchronize()
+    wall15 = (time.perf_counter() - t_all) * 1e3
+    launches15 = dict(ck.launches)
+    print(f"kernels (slice-15 main path): {json.dumps(launches15)}; "
+          f"6 regens in {wall15:.1f} ms host wall")
+    check(launches15["mixture_fused_wide"] == 6
+          and sum(launches15.values()) == 6,
+          "the slice-15 main path did not launch mixture_fused_wide once "
+          "a regen and nothing else")
+    check(w256.dtype == torch.int64 and w256.numel() == ns_big
+          and w8.numel() == ns_big8 == 562_500_000,
+          f"3e9/1e9/5e8 regens: {w256.dtype} {w256.numel()} lanes at world "
+          f"256, {w8.numel()} at world 8")
+    hold("mixture_fused_wide", w256, ck.mixture_fused_wide_ref(
+        None, big, 0, 1, rank=5, world=256, num_samples=ns_big, wide_pos=True,
+        device=dev), f"3e9/1e9/5e8 world=256 rank=5 (all {ns_big} lanes)")
+    hold("mixture_fused_wide", tri15, w256,
+         "3e9/1e9/5e8 world=256 device triple against scalars")
+    body8, tail8, near8, split8 = mix_lanes(big, None, 8, 3)
+    lanes8 = torch.unique(torch.cat([
+        torch.from_numpy(np.random.default_rng(8).choice(
+            ns_big8, 1_000_000, replace=False)).to(dev),
+        torch.arange(4, device=dev),
+        torch.arange(ns_big8 - 4, ns_big8, device=dev), near8]))
+    hold("mixture_fused_wide", w8[lanes8], M.mixture_stream_at_generic(
+        3 + 8 * lanes8, big, 0, 1, big_positions=True, amortize=False,
+        fused=False), f"3e9/1e9/5e8 world=8 rank=3: {lanes8.numel()} of "
+         f"{ns_big8} lanes (seeded, first, last, {near8.numel()} in or near "
+         "a source's tail window) against the plain random-access law")
+    hold("mixture_fused_wide", rest15, M.mixture_elastic_indices_generic(
+        big, 0, 1, 5, 256, layers15, amortize=False, fused=False,
+        device=dev), f"3e9/1e9/5e8 world=256 rank=5 remainder after "
+         f"{layers15}")
+    hold("mixture_fused_wide", rand_ids, M.mixture_stream_at_generic(
+        rand15, big, 0, 1, amortize=False, fused=False),
+         "3e9/1e9/5e8 1M random int64 positions (negative ones as uint64)")
+    hold("mixture_fused_wide", m1_masked, ck.mixture_fused_wide_ref(
+        None, m1, 0, 1, rank=5, world=256, num_samples=mix_sizes(
+            m1, None, 256)[0], wide_pos=False, device=dev),
+         "M1 fused=False world=256 rank=5")
+    del w256, w8, rest15, tri15, m1_masked, rand_ids, lanes8, near8
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 6
     floor_ms = launch_floor_ms(max_sm_mhz)
     print(f"launch floor (empty kernel, back to back): {floor_ms:.4f} ms | "
@@ -5306,7 +5452,7 @@ def main() -> None:
             ("M2 world=256", m1, M2_SAMPLES, 256, 5),
             ("M3 world=256", m3, None, 256, 5)):
         ns, wide = mix_sizes(spec, es, world)
-        body, tail, _near = mix_lanes(spec, es, world, rank)
+        body, tail, _near, _split = mix_lanes(spec, es, world, rank)
         lane = MIX_LANE_OPS + (WIDE_OPS if wide else 0)
         staged = ck.mixture_key_words(spec, 24) + 8 * spec.num_sources
         # folded: every block derives the key words (not the table) again
@@ -5381,39 +5527,112 @@ def main() -> None:
                 s, None, None, 5, 256, epoch_samples=es, triple=t3), 20)
             line += f", device triple {tri_ms:.4f} ms"
         print(f"{line} | {card}")
-    # the masked per-source mixture (plain torch on the card): M1 with the
-    # kernels turned off, and a spec with a source past 2^31, which only
-    # this route takes; each beside mixture_fused at M1 / world 256
+    # the masked per-source law: mixture_fused_wide beside its plain
+    # version (the masked loop per lane) and beside the masked torch loop
+    # that ran on the card before it (S passes, amortized tables), for M1
+    # with fused=False, the 3e9/1e9/5e8 mixture at world 256 and the 10B
+    # mixture whose web source passes 2^32 (64-bit splits); at world 8
+    # (562.5M lanes) the kernel alone, and whether the torch loop fits
     fused_ms = gpu_ms(lambda: pt.mixture_epoch_indices_cuda(m1, 0, 1, 5,
                                                             256), 20)
-    big = pt.MixtureSpec(MASKED_BIG_SOURCES, MASKED_BIG_WEIGHTS, windows=W)
-    for label, spec, kw in (("M1", m1, dict(fused=False)),
-                            ("3e9/1e9/5e8 at 60/25/15", big, {})):
-        fn = lambda s=spec, kw=kw: pt.mixture_epoch_indices_cuda(
-            s, 0, 1, 5, 256, **kw)
-        before = sum(ck.launches.values())
-        out = fn()
-        n_launch = sum(ck.launches.values()) - before
-        lanes = out.numel()
+    m10b = pt.MixtureSpec(MASKED_10B_SOURCES, MASKED_BIG_WEIGHTS, windows=W)
+    for label, spec, world, rank, kw in (
+            ("M1 fused=False", m1, 256, 5, dict(fused=False)),
+            ("3e9/1e9/5e8 at 60/25/15", big, 256, 5, {}),
+            ("6e9/2.5e9/1.5e9 at 60/25/15", m10b, 256, 5, {}),
+            ("3e9/1e9/5e8 at 60/25/15", big, 8, 3, {})):
+        ns, wide = mix_sizes(spec, None, world)
+        if world == 8:
+            body, tail, split = body8, tail8, split8
+        else:
+            body, tail, _near, split = mix_lanes(spec, None, world, rank)
+        lane = MIX_LANE_OPS + (WIDE_OPS if wide else 0)
+        ops = (body * (lane + BIJ_KEY_OPS + INNER_KEY_OPS + 2 * son)
+               + tail * (lane + BIJ_KEY_OPS + son) + split * MIX_SPLIT64_OPS
+               + mix_grid(ns) * ck.mixture_key_words(spec, 24) * KEY_WORD_OPS)
+        itemsize = spec.out_dtype().itemsize
+        b_ms, b_by = bound(ops, ns * itemsize
+                           + table_bytes(spec, keys_read=False))
+        fn = lambda s=spec, r=rank, w=world, kw=kw: \
+            pt.mixture_epoch_indices_cuda(s, 0, 1, r, w, **kw)
+        ck.reset_launches()
+        fn()
+        ran = {k: v for k, v in ck.launches.items() if v}
+        check(ran == {"mixture_fused_wide": 1},
+              f"the {label} regen launched {ran}")
+        ms = gpu_ms(fn, 5 if world == 8 else 20)
+        tag = f"{label} world={world}"
+        if world == 8:
+            # the torch loop at world 8: run it, or see it not fit
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                t = time.perf_counter()
+                M.mixture_epoch_indices_generic(spec, 0, 1, rank, world,
+                                                fused=False, device=dev)
+                torch.cuda.synchronize()
+                loop_s = (f"ran in {(time.perf_counter() - t) * 1e3:.1f} ms "
+                          "host wall")
+            except torch.cuda.OutOfMemoryError as exc:
+                loop_s = f"out of memory ({str(exc).splitlines()[0]})"
+            loop_s += (f", {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+                       "GiB peak")
+            torch.cuda.empty_cache()
+            print(f"time mixture_fused_wide {tag}: kernel {ms:.4f} ms for "
+                  f"{ns} lanes ({body} body + {tail} tail, {split} 64-bit "
+                  "splits), plain not "
+                  f"measured; bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G "
+                  f"int32 ops), {b_ms / ms:.1%} of bound; the masked torch "
+                  f"loop at world 8 {loop_s} | {card}")
+            continue
+        args = dict(rank=rank, world=world, num_samples=ns, wide_pos=wide,
+                    device=dev)
         torch.cuda.reset_peak_memory_stats()
-        ms = gpu_ms(fn, 3)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        _t, _ns, total = M.mixture_epoch_sizes(spec, None, 256, False)
-        ops = masked_mixture_ops(spec, lanes, total,
-                                 wide=M.wide_positions(total - 1, spec))
-        b_ms, b_by = bound(ops, lanes * out.element_size())
-        print(f"time masked per-source mixture (plain torch) {label} "
-              f"world=256: {ms:.4f} ms device for {lanes} lanes "
-              f"({out.dtype}, {n_launch} kernel launches, {peak:.1f} GiB "
-              f"peak), mixture_fused M1 world=256 {fused_ms:.4f} ms, per "
-              f"lane {ms / lanes:.3e} against {fused_ms / ns_m1:.3e} ms, "
-              f"{(ms / lanes) / (fused_ms / ns_m1):.1f}x; bound of the same "
-              f"work, no kernel, {b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G "
-              f"int32 ops over {spec.num_sources} passes), {b_ms / ms:.1%} "
-              f"of bound | {card}")
-        check(n_launch == 0, "the masked mixture launched a kernel")
-        del out
+        plain = gpu_ms(lambda s=spec, a=args: ck.mixture_fused_wide_ref(
+            None, s, 0, 1, **a), 3)
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        loop = gpu_ms(lambda s=spec, r=rank, w=world: \
+                      M.mixture_epoch_indices_generic(s, 0, 1, r, w,
+                                                      fused=False,
+                                                      device=dev), 3)
+        loop_peak = torch.cuda.max_memory_allocated() / 2**30
+        _t, _ns, total = M.mixture_epoch_sizes(spec, None, world, False)
+        loop_ops = masked_mixture_ops(spec, ns, total,
+                                      wide=M.wide_positions(total - 1, spec))
+        lb_ms, lb_by = bound(loop_ops, ns * itemsize)
+        if spec is m10b:
+            hold("mixture_fused_wide", fn(), ck.mixture_fused_wide_ref(
+                None, spec, 0, 1, **args), f"{tag} rank={rank} (all {ns} "
+                 f"lanes; {split} 64-bit splits)")
+        print(f"time mixture_fused_wide {tag}: kernel {ms:.4f} ms for {ns} "
+              f"lanes ({spec.out_dtype()}; {body} body + {tail} tail, "
+              f"{split} 64-bit splits), plain {plain:.4f} ms "
+              f"({plain_peak:.1f} GiB peak), bound "
+              f"{b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G int32 ops), "
+              f"{b_ms / ms:.1%} of bound; per lane {ms / ns:.3e} ms against "
+              f"mixture_fused M1 world=256 {fused_ms / ns_m1:.3e}, "
+              f"{(ms / ns) / (fused_ms / ns_m1):.2f}x; the masked torch loop "
+              f"(the route before this kernel) {loop:.4f} ms ({loop_peak:.1f}"
+              f" GiB peak), its bound {lb_ms:.4f} ms ({lb_by}; "
+              f"{loop_ops / 1e9:.3f} G int32 ops over {spec.num_sources} "
+              f"passes), kernel {loop / ms:.1f}x faster | {card}")
+        if spec is big:
+            rows["mixture_fused_wide"] = (ms, plain, b_ms, b_by)
         torch.cuda.empty_cache()
+    # could mixture_fused_wide take mixture_fused's specs?  Both kernels on
+    # M1, M2 and M3 at world 256, keys folded, in one run
+    for label, spec, es in (("M1", m1, None), ("M2", m1, M2_SAMPLES),
+                            ("M3", m3, None)):
+        ns, wide = mix_sizes(spec, es, 256)
+        kw = dict(rank=5, world=256, num_samples=ns, wide_pos=wide)
+        pair = [gpu_ms(lambda f=f, s=spec, kw=kw: f(None, s, 0, 1, **kw), 20)
+                for f in (ck.mixture_fused, ck.mixture_fused_wide,
+                          ck.mixture_fused, ck.mixture_fused_wide)]
+        print(f"mixture_fused_wide on {label} world=256: "
+              f"{pair[1]:.4f} / {pair[3]:.4f} ms against mixture_fused "
+              f"{pair[0]:.4f} / {pair[2]:.4f} ms, "
+              f"{(pair[1] + pair[3]) / (pair[0] + pair[2]):.3f}x | {card}")
 
     # the shard kernels: S1 at world 8 (the main path) and 1, S2, S3, S4
     def shard_work(sizes, sids, wss):
@@ -5559,6 +5778,9 @@ def main() -> None:
             "partiallyshuffledistributedsampler_tpu/ops/mixture.py:534",
         "mixture_fused":
             "partiallyshuffledistributedsampler_tpu/ops/mixture.py:426",
+        "mixture_fused_wide":
+            "partiallyshuffledistributedsampler_tpu/ops/mixture.py:799"
+            " + partiallyshuffledistributedsampler_tpu/ops/mixture.py:614",
         "shard_row_keys":
             "partiallyshuffledistributedsampler_tpu/sampler/shard_mode.py:121",
         "shard_expand":
@@ -5590,7 +5812,7 @@ def main() -> None:
             "launches": sum(run.get(name, 0) for run in (
                 launches, launches2, launches3, launches3b, launches4,
                 launches8, launches9, launches10, launches19, launches20,
-                launches21)),
+                launches21, launches15)),
             "max_abs_err": stats[name]["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

@@ -1,7 +1,7 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/``.
 
-Twelve kernels, each with a wrapper, a plain PyTorch version and a launch
-counter:
+Thirteen kernels, each with a wrapper, a plain PyTorch version and a
+launch counter:
 
 ====================  ===================================  ==========================
 wrapper               plain version                        replaces
@@ -28,6 +28,11 @@ mixture_source_keys   ``mixture_source_keys_ref``          ``ops/mixture.py``
                                                            past the fold)
 mixture_fused         ``mixture_fused_ref`` (the fused     ``ops/mixture.py``
                       evaluator of ``ops/mixture.py``)     ``_fused_mixture_eval``
+mixture_fused_wide    ``mixture_fused_wide_ref`` (the      ``ops/mixture.py``
+                      masked per-source loop of            ``mixture_stream_at_``
+                      ``ops/mixture.py``, per lane)        ``generic`` (its masked
+                                                           loop) and
+                                                           ``_amortized_source_perm``
 shard_row_keys        ``shard_row_keys_ref``               ``sampler/shard_mode.py``
                       (``ops/shard.py``)                   ``_shard_epoch_keys`` and
                                                            the per-row key columns
@@ -46,10 +51,13 @@ weighted_stream_wide  ordinals, the remainder chain or     ``weighted_stream_at_
 three ``_wide`` index kernels serve index spaces n >= 2^31 with int64 output;
 the others take n < 2^31 and write int32.  Each wrapper refuses the other
 width, so a wide config is never narrowed.  ``mixture_fused`` takes uint32
-or uint64 positions and writes int32 or int64 ids, by the mixture's sizes;
-while a spec's keys and source table take at most ``FOLD_WORDS_CAP`` words
-(``mixture_folds``) a regen lets it derive the keys itself, one launch;
-past that ``mixture_source_keys`` writes them first.
+or uint64 positions and writes int32 or int64 ids, by the mixture's sizes,
+for mixtures whose sources are all below 2^31; ``mixture_fused_wide`` takes
+the same arguments and computes the same law for any source size (the
+in-source offset, the pass split and the output in 64 bits).  While a
+spec's keys and source table take at most ``FOLD_WORDS_CAP`` words
+(``mixture_folds``) a regen lets either derive the keys itself, one
+launch; past that ``mixture_source_keys`` writes them first.
 
 Every kernel takes 0 to ``MAX_ROUNDS`` (4,096) swap-or-not rounds; a
 wrapper raises ``ValueError`` above that.
@@ -126,7 +134,7 @@ launches = {"index_general": 0, "index_amortized": 0,
             "index_general_wide": 0, "index_amortized_wide": 0,
             "index_positions": 0, "index_positions_wide": 0,
             "mixture_source_keys": 0, "mixture_fused": 0,
-            "shard_row_keys": 0, "shard_expand": 0,
+            "mixture_fused_wide": 0, "shard_row_keys": 0, "shard_expand": 0,
             "weighted_stream": 0, "weighted_stream_wide": 0}
 
 _libs: dict = {}
@@ -271,13 +279,14 @@ def _load_locked(name: str) -> ctypes.CDLL:
                                               u32, u32, u32, i32, i32, i32,
                                               ptr]
         else:
-            fns = (lib.psds_mixture_source_keys, lib.psds_mixture_fused)
+            fns = (lib.psds_mixture_source_keys, lib.psds_mixture_fused,
+                   lib.psds_mixture_fused_wide)
             lib.psds_mixture_source_keys.argtypes = [ptr, ptr, i32, i32,
                                                      *keys, ptr]
-            lib.psds_mixture_fused.argtypes = [
-                ptr, ptr, u64, u64, u64, i32, u32, i32, ptr, ptr, ptr, ptr,
-                *keys, i32, i32, i32, i32, i32, i32, ptr,
-            ]
+            for fn in fns[1:]:
+                fn.argtypes = [ptr, ptr, u64, u64, u64, i32, u32, i32, ptr,
+                               ptr, ptr, ptr, *keys, i32, i32, i32, i32, i32,
+                               i32, ptr]
         for fn in fns:
             fn.restype = i32
         _libs[name] = lib
@@ -903,7 +912,7 @@ def mixture_source_keys(spec, seed, epoch, *,
 
 
 def _check_lane_source(rank, world, num_samples, positions) -> None:
-    """A ``mixture_fused`` call takes its lanes from ``positions`` or from
+    """A mixture kernel call takes its lanes from ``positions`` or from
     ``(rank, world, num_samples)``: exactly one of the two."""
     if positions is not None:
         if rank is not None or world is not None or num_samples is not None:
@@ -911,6 +920,26 @@ def _check_lane_source(rank, world, num_samples, positions) -> None:
                              "num_samples, not both")
     elif rank is None or world is None or num_samples is None:
         raise ValueError("pass positions, or rank, world and num_samples")
+
+
+def _mixture_plain(fused, keys, spec, seed, epoch, rank, world, num_samples,
+                   partition, positions, wide_pos, shuffle, order_windows,
+                   rounds, device) -> torch.Tensor:
+    """The plain version of a mixture kernel: ``ops/mixture.py``'s law at
+    the lanes' positions on ``keys``' device (or ``device`` when ``keys``
+    is None), by the evaluator ``fused`` picks, per lane."""
+    _check_lane_source(rank, world, num_samples, positions)
+    dev = torch.device(device if keys is None else keys.device)
+    if positions is None:
+        p = mixture.rank_stream_positions(spec, rank, world, num_samples,
+                                          partition, wide_pos, dev)
+    else:
+        p = torch.as_tensor(positions).to(dev, torch.int64)
+    return mixture.mixture_stream_at_generic(
+        p, spec, seed, epoch, shuffle=shuffle,
+        order_windows=order_windows, rounds=rounds, big_positions=wide_pos,
+        amortize=False, fused=fused,
+    )
 
 
 def mixture_fused_ref(keys, spec, seed, epoch, *, rank=None, world=None,
@@ -923,46 +952,46 @@ def mixture_fused_ref(keys, spec, seed, epoch, *, rank=None, world=None,
     ``device`` when ``keys`` is None, the folded keys): the fused per-lane
     evaluator of ``ops/mixture.py`` (the masked loop for an unshuffled
     stream, whose law is the identity per source)."""
-    _check_lane_source(rank, world, num_samples, positions)
-    dev = torch.device(device if keys is None else keys.device)
-    if positions is None:
-        p = mixture.rank_stream_positions(spec, rank, world, num_samples,
-                                          partition, wide_pos, dev)
-    else:
-        p = torch.as_tensor(positions).to(dev, torch.int64)
-    return mixture.mixture_stream_at_generic(
-        p, spec, seed, epoch, shuffle=shuffle,
-        order_windows=order_windows, rounds=rounds, big_positions=wide_pos,
-        amortize=False,
-    )
+    return _mixture_plain(None, keys, spec, seed, epoch, rank, world,
+                          num_samples, partition, positions, wide_pos,
+                          shuffle, order_windows, rounds, device)
 
 
-def mixture_fused(keys, spec, seed, epoch, *, rank=None, world=None,
-                  num_samples=None, partition="strided", positions=None,
-                  wide_pos: bool, shuffle: bool = True,
-                  order_windows: bool = True,
-                  rounds: int = core.DEFAULT_ROUNDS, device="cuda",
-                  triple=None) -> torch.Tensor:
-    """Mixture ids, one lane per position: the rank's own positions
-    (``rank``, ``world``, ``num_samples``, ``partition``) or an int64
-    ``positions`` tensor on the launch device.  ``keys`` is this regen's
-    ``mixture_source_keys`` buffer, and its device the launch's; or None,
-    and the kernel derives the keys itself from the scalars or ``triple``
-    (specs whose keys it stages), on ``device``.  ``wide_pos`` selects
-    uint64 position math.  int32 ids, or int64 when the sources total 2^31
-    or more.  Takes only mixtures whose sources are all below 2^31."""
+def mixture_fused_wide_ref(keys, spec, seed, epoch, *, rank=None,
+                           world=None, num_samples=None, partition="strided",
+                           positions=None, wide_pos: bool,
+                           shuffle: bool = True, order_windows: bool = True,
+                           rounds: int = core.DEFAULT_ROUNDS,
+                           device=None) -> torch.Tensor:
+    """``mixture_fused_ref`` by the masked per-source loop of
+    ``ops/mixture.py`` (``fused=False``), evaluated per lane
+    (``amortize=False``): the law for any source size."""
+    return _mixture_plain(False, keys, spec, seed, epoch, rank, world,
+                          num_samples, partition, positions, wide_pos,
+                          shuffle, order_windows, rounds, device)
+
+
+def _mixture_kernel(wide_law: bool, keys, spec, seed, epoch, rank, world,
+                    num_samples, partition, positions, wide_pos, shuffle,
+                    order_windows, rounds, device, triple) -> torch.Tensor:
+    """One launch of ``mixture_fused_wide`` (``wide_law``) or
+    ``mixture_fused``, or its plain version for a CPU device."""
     seed_p, epoch_p = _plain_keys(seed, epoch, triple)
     dev = torch.device(device if keys is None else keys.device)
     if device_kind(dev) == "cpu":
-        return mixture_fused_ref(
-            keys, spec, seed_p, epoch_p, rank=rank, world=world,
-            num_samples=num_samples, partition=partition,
-            positions=positions, wide_pos=wide_pos, shuffle=shuffle,
-            order_windows=order_windows, rounds=rounds, device=dev)
-    if not spec.fused_applies():
+        plain = mixture_fused_wide_ref if wide_law else mixture_fused_ref
+        return plain(keys, spec, seed_p, epoch_p, rank=rank, world=world,
+                     num_samples=num_samples, partition=partition,
+                     positions=positions, wide_pos=wide_pos, shuffle=shuffle,
+                     order_windows=order_windows, rounds=rounds, device=dev)
+    if wide_law:
+        # the source table carries W and nw in 32 bits
+        for n, w in zip(spec.sources, spec.windows):
+            core.check_index_space(n, w)
+    elif not spec.fused_applies():
         raise ValueError(
             "the mixture kernel takes sources below 2^31; larger sources "
-            "take the masked evaluator (fused=False)"
+            "take mixture_fused_wide"
         )
     _check_rounds(rounds)
     if spec.block > core.INT32_MAX:
@@ -988,7 +1017,7 @@ def mixture_fused(keys, spec, seed, epoch, *, rank=None, world=None,
     if positions is not None:
         if not (isinstance(positions, torch.Tensor)
                 and positions.dtype == torch.int64
-                and positions.device.type == "cuda"
+                and device_kind(positions.device) == "cuda"
                 and (keys is None or positions.device == keys.device)
                 and positions.is_contiguous() and positions.dim() == 1):
             raise ValueError(
@@ -1014,8 +1043,13 @@ def mixture_fused(keys, spec, seed, epoch, *, rank=None, world=None,
     lib = _load("mixture")
     pattern, prefix, src = mixture_tables(spec, out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    _count("mixture_fused")
-    _check("mixture_fused", lib.psds_mixture_fused(
+    if wide_law:
+        name, fn = "mixture_fused_wide", lib.psds_mixture_fused_wide
+        _count("mixture_fused_wide")
+    else:
+        name, fn = "mixture_fused", lib.psds_mixture_fused
+        _count("mixture_fused")
+    _check(name, fn(
         out.data_ptr(), None if positions is None else positions.data_ptr(),
         lanes, rank, world, int(partition == "strided"), spec.block,
         spec.num_sources, pattern.data_ptr(), prefix.data_ptr(),
@@ -1025,6 +1059,41 @@ def mixture_fused(keys, spec, seed, epoch, *, rank=None, world=None,
         int(spec.out_dtype() == torch.int64), stream,
     ))
     return out
+
+
+def mixture_fused(keys, spec, seed, epoch, *, rank=None, world=None,
+                  num_samples=None, partition="strided", positions=None,
+                  wide_pos: bool, shuffle: bool = True,
+                  order_windows: bool = True,
+                  rounds: int = core.DEFAULT_ROUNDS, device="cuda",
+                  triple=None) -> torch.Tensor:
+    """Mixture ids, one lane per position: the rank's own positions
+    (``rank``, ``world``, ``num_samples``, ``partition``) or an int64
+    ``positions`` tensor on the launch device.  ``keys`` is this regen's
+    ``mixture_source_keys`` buffer, and its device the launch's; or None,
+    and the kernel derives the keys itself from the scalars or ``triple``
+    (specs whose keys it stages), on ``device``.  ``wide_pos`` selects
+    uint64 position math.  int32 ids, or int64 when the sources total 2^31
+    or more.  Takes only mixtures whose sources are all below 2^31."""
+    return _mixture_kernel(False, keys, spec, seed, epoch, rank, world,
+                           num_samples, partition, positions, wide_pos,
+                           shuffle, order_windows, rounds, device, triple)
+
+
+def mixture_fused_wide(keys, spec, seed, epoch, *, rank=None, world=None,
+                       num_samples=None, partition="strided", positions=None,
+                       wide_pos: bool, shuffle: bool = True,
+                       order_windows: bool = True,
+                       rounds: int = core.DEFAULT_ROUNDS, device="cuda",
+                       triple=None) -> torch.Tensor:
+    """``mixture_fused`` for any source size, the law of the masked
+    per-source loop (``mixture_fused_wide_ref``): each lane's in-source
+    offset, its pass split and its id in 64 bits, the bijections in 32.
+    The same arguments and output types; a source's window and window
+    count must stay below 2^31 (SPEC.md §3)."""
+    return _mixture_kernel(True, keys, spec, seed, epoch, rank, world,
+                           num_samples, partition, positions, wide_pos,
+                           shuffle, order_windows, rounds, device, triple)
 
 
 # ---------------------------------------------------------------- shards

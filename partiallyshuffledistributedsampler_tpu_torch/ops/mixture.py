@@ -18,8 +18,9 @@ uint64 positions as plain int64).  Three evaluators give the same values:
   (``ops/cuda_kernel.py``, ``csrc/mixture_kernels.cu``);
 * the masked per-source loop (``fused=False``), S full-lane passes, with
   the amortized per-source evaluation (``_amortized_source_perm``) where
-  its pass tables stay small;
-* the kernel itself.
+  its pass tables stay small.  Evaluated per lane (``amortize=False``) it
+  is the plain version of the ``mixture_fused_wide`` kernel;
+* the kernels themselves.
 
 The JAX package's packed slot and rotation tables (``packed_slot_table``,
 ``packed_rot_table``, ``_SELECT_CAP``, ``_ROT_PACK_LANES_CAP``) are
@@ -28,14 +29,16 @@ not carried over.
 
 Entry points: ``mixture_epoch_indices_cuda``, ``mixture_stream_at_cuda``
 and ``mixture_elastic_indices_cuda`` run on the card by default (their
-``_cpu`` twins on the host).  On a CUDA device every config whose sources
-are all below 2^31 launches the kernels: ``mixture_fused`` alone, which
+``_cpu`` twins run the plain law on the host).  On a CUDA device every
+regen launches a kernel: ``mixture_fused`` where every source is below
+2^31 and ``fused`` is not False; otherwise ``mixture_fused_wide``, the
+masked evaluator's kernel, which serves a source of 2^31 or more (where
+the JAX package also leaves its fused path) and ``fused=False``.  Either
 derives the per-source keys itself while they are few
-(``cuda_kernel.mixture_folds``), else ``mixture_source_keys`` then
-``mixture_fused``.  Two routes run the masked torch evaluator on the
-card instead, by config and never on a kernel failure: ``fused=False``
-when asked for, and a source of 2^31 or more, where the JAX package also
-leaves its fused path.
+(``cuda_kernel.mixture_folds``), else ``mixture_source_keys`` runs first.
+``fused=True`` where the fused law does not apply raises, as the plain
+law does.  No mixture evaluator runs as torch ops on the card, and no
+path turns to one when a kernel fails to build or launch.
 """
 
 from __future__ import annotations
@@ -215,7 +218,7 @@ class MixtureSpec:
 
     def fused_applies(self) -> bool:
         """Whether every source is below 2^31, where the fused per-lane
-        evaluation (and the kernel) takes the stream."""
+        evaluation (and the ``mixture_fused`` kernel) takes the stream."""
         return max(self.sources) <= core.INT32_MAX
 
     def decompose(self, global_ids):
@@ -545,8 +548,9 @@ def _masked_mixture_eval(spec: MixtureSpec, p, slot, rot, wrap, blk, seed,
                          rounds: int, wide: bool, amortize: bool,
                          max_position: Optional[int]) -> torch.Tensor:
     """The masked per-source loop: S full-lane passes, each lane keeping
-    the pass of its own source.  The reference evaluator, and the route
-    of sources >= 2^31."""
+    the pass of its own source.  The reference evaluator, the host's route
+    of sources >= 2^31, and (per lane) the plain version of the
+    ``mixture_fused_wide`` kernel."""
     tab = _source_tables(spec, p.device)
     s_arr = tab["pattern"][slot]
     out_dtype = spec.out_dtype()
@@ -780,23 +784,27 @@ def build_mixture_evaluator(
 
 # ---------------------------------------------------------------- entries
 def _kernel_route(spec: MixtureSpec, device, fused: Optional[bool],
-                  shuffle: bool) -> bool:
-    """Whether a regen launches the kernels: a CUDA device, every source
-    below 2^31 and ``fused`` not False.  ``fused=True`` where the fused
-    law does not apply raises, as the plain law does."""
+                  shuffle: bool):
+    """The kernel wrapper a regen on ``device`` launches, or None off the
+    card (the plain law): ``mixture_fused`` where every source is below
+    2^31 and ``fused`` is not False, else ``mixture_fused_wide``.
+    ``fused=True`` where the fused law does not apply raises, as the plain
+    law does."""
     if cuda_kernel.device_kind(device) != "cuda":
-        return False
+        return None
     if fused and not (shuffle and spec.fused_applies()):
         raise ValueError(
             "fused evaluation requires shuffle=True and every source "
             "size < 2^31; pass fused=False (or None) here"
         )
-    return fused is not False and spec.fused_applies()
+    if fused is not False and spec.fused_applies():
+        return cuda_kernel.mixture_fused
+    return cuda_kernel.mixture_fused_wide
 
 
 def _route_keys(spec: MixtureSpec, seed, epoch, rounds: int, device,
                 triple):
-    """The keys argument of a kernel regen: None where ``mixture_fused``
+    """The keys argument of a kernel regen: None where the mixture kernel
     derives them itself (one launch), else the ``mixture_source_keys``
     buffer (a launch before it)."""
     if cuda_kernel.mixture_folds(spec, rounds):
@@ -845,8 +853,9 @@ def mixture_epoch_indices_cuda(
             f"partition must be 'strided' or 'blocked', got {partition!r}"
         )
     with torch.profiler.record_function("psds_mixture_regen"):
-        if _kernel_route(spec, device, fused, shuffle):
-            return cuda_kernel.mixture_fused(
+        kernel = _kernel_route(spec, device, fused, shuffle)
+        if kernel is not None:
+            return kernel(
                 _route_keys(spec, seed, epoch, rounds, device, triple), spec,
                 seed, epoch, rank=rank, world=world,
                 num_samples=num_samples, partition=partition,
@@ -865,10 +874,11 @@ def mixture_epoch_indices_cuda(
 def _stream_at_positions(positions: torch.Tensor, spec: MixtureSpec, seed,
                          epoch, *, shuffle, order_windows, rounds, wide,
                          amortize, max_position, fused, device, triple):
-    """Ids of int64 ``positions`` on ``device``: the kernels where they
-    apply, else the plain law."""
-    if _kernel_route(spec, device, fused, shuffle):
-        return cuda_kernel.mixture_fused(
+    """Ids of int64 ``positions`` on ``device``: a mixture kernel on the
+    card, the plain law on the host."""
+    kernel = _kernel_route(spec, device, fused, shuffle)
+    if kernel is not None:
+        return kernel(
             _route_keys(spec, seed, epoch, rounds, device, triple), spec,
             seed, epoch, positions=positions, wide_pos=wide,
             shuffle=shuffle, order_windows=order_windows, rounds=rounds,

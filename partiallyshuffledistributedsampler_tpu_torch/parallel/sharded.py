@@ -17,12 +17,13 @@ same way (``index_positions``, which composes the reshard chain in the
 kernel from a table put on the card when the regen function is made).
 
 The mixture (SPEC.md §8) rides the same agreement: the agreed triple feeds
-the mixture kernels (``mixture_fused``, or ``mixture_source_keys`` for a
-spec too large to fold, XORs each source's seed offset into the agreed
-halves on the card, the bitwise split of
-``source_seed_folded``), and the remainder positions of an elastic
-mixture epoch are built with torch ops on the card before the kernel
-evaluates them.
+the mixture kernels (``mixture_fused``, or ``mixture_fused_wide`` for a
+source of 2^31 or more and for ``fused=False``; ``mixture_source_keys``
+first for a spec too large to fold), which XOR each source's seed offset
+into the agreed halves on the card, the bitwise split of
+``source_seed_folded``; the remainder positions of an elastic mixture
+epoch are built with torch ops on the card before the kernel evaluates
+them.
 """
 
 from __future__ import annotations
@@ -253,8 +254,9 @@ def make_mixture_regen_fn(
     law = dict(epoch_samples=epoch_samples, shuffle=shuffle,
                drop_last=drop_last, order_windows=order_windows,
                partition=partition, rounds=rounds)
-    if mesh.device_type == "cuda" and spec.fused_applies():
-        # the spec's tables go to the card here, so a regen copies nothing
+    if mesh.device_type == "cuda":
+        # the spec's tables (both mixture kernels read them) go to the card
+        # here, so a regen copies nothing
         cuda_kernel.mixture_tables(spec, mesh.device_type)
 
     def fn(triple: torch.Tensor) -> torch.Tensor:

@@ -382,8 +382,8 @@ def test_kernel_launch_counter_names_are_not_metric_names(tmp_path):
     only: the WAL's ``self._count(...)`` names are metric names, and the
     kernel launch counter, a plain ``_count(...)`` call in
     ``ops/cuda_kernel.py``, adds none, in either lint."""
-    kernels = {"mixture_fused", "mixture_source_keys", "shard_row_keys",
-               "shard_expand"}
+    kernels = {"mixture_fused", "mixture_fused_wide", "mixture_source_keys",
+               "shard_row_keys", "shard_expand"}
     src = (ROOT / PKG / "ops" / "cuda_kernel.py").read_text(encoding="utf-8")
     assert all(f'_count("{k}")' in src for k in kernels)
     names = lint._code_metric_names(default_root())

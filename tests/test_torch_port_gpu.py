@@ -381,6 +381,118 @@ def test_mixture_sampler_iterator_and_runner_launches():
         js, 0, e, 1, 2)[:whole].sum()) for e in (2, 3, 4))
 
 
+# ------------------------------------------ the masked law's kernel
+from test_torch_port_mixture_wide import (  # noqa: E402
+    MIX_SPECS,
+    boundary_positions,
+)
+
+WIDE_MIX = [c for c in MIX_SPECS if c[0] != "small"]
+
+
+def _wide_specs(case, **extra):
+    _sid, sources, weights, skw = case
+    return (jmix.MixtureSpec(sources, weights, **skw, **extra),
+            MixtureSpec(sources, weights, **skw, **extra))
+
+
+@pytest.mark.parametrize("case", WIDE_MIX, ids=[c[0] for c in WIDE_MIX])
+def test_mixture_fused_wide_matches_plain_and_numpy(case):
+    """A regen of a spec with a source of 2^31 or more is one
+    ``mixture_fused_wide`` launch, equal to its plain version on the card
+    (every lane of a world-4096 rank, keys folded and given, v1 and v2,
+    unshuffled, unordered, blocked) and to the JAX package's numpy law."""
+    js, ps = _wide_specs(case)
+    for law in ({}, dict(partition="blocked"), dict(shuffle=False),
+                dict(order_windows=False)):
+        ck.reset_launches()
+        got = mixture_epoch_indices_cuda(ps, 42, 3, 7, 4096, **law)
+        assert ck.launches["mixture_fused_wide"] == 1
+        assert sum(ck.launches.values()) == 1
+        _t, ns, total = pmix.mixture_epoch_sizes(ps, None, 4096, False)
+        kw = dict(rank=7, world=4096, num_samples=ns,
+                  partition=law.get("partition", "strided"),
+                  wide_pos=total + ps.block > core.INT32_MAX,
+                  shuffle=law.get("shuffle", True),
+                  order_windows=law.get("order_windows", True))
+        want = ck.mixture_fused_wide_ref(None, ps, 42, 3, device="cuda",
+                                         **kw)
+        assert got.is_cuda and got.dtype == torch.int64
+        assert torch.equal(got, want)
+        keys = ck.mixture_source_keys(ps, 42, 3)
+        assert torch.equal(ck.mixture_fused_wide(keys, ps, 42, 3, **kw),
+                           want)
+        np.testing.assert_array_equal(
+            mixture_epoch_indices_cuda(ps, 42, 3, 7, 2**16,
+                                       **law).cpu().numpy(),
+            jmix.mixture_epoch_indices_np(js, 42, 3, 7, 2**16, fused=False,
+                                          **law))
+    js1, ps1 = _wide_specs(case, pattern_version=1)
+    np.testing.assert_array_equal(
+        mixture_epoch_indices_cuda(ps1, 42, 3, 7, 2**16).cpu().numpy(),
+        jmix.mixture_epoch_indices_np(js1, 42, 3, 7, 2**16, fused=False))
+
+
+@pytest.mark.parametrize("case", WIDE_MIX, ids=[c[0] for c in WIDE_MIX])
+def test_mixture_fused_wide_tails_random_access_and_remainder(case):
+    """Random access at the lanes around each source's tail window and
+    pass wrap and at random uint64 positions, and the elastic remainder:
+    one ``mixture_fused_wide`` launch each, equal to the numpy law."""
+    js, ps = _wide_specs(case)
+    pos = np.concatenate([boundary_positions(ps),
+                          np.random.default_rng(3).integers(0, 2**40,
+                                                            20_000)])
+    ck.reset_launches()
+    got = mixture_stream_at_cuda(pos, ps, 5, 1)
+    assert ck.launches["mixture_fused_wide"] == 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), jmix.mixture_stream_at_np(pos, js, 5, 1))
+    layers = [(2**15, 300)]
+    for rank in (0, 2**16 - 1):
+        ck.reset_launches()
+        got = mixture_elastic_indices_cuda(ps, 5, 1, rank, 2**16, layers)
+        assert ck.launches["mixture_fused_wide"] == 1
+        np.testing.assert_array_equal(
+            got.cpu().numpy(),
+            jmix.mixture_elastic_indices_np(js, 5, 1, rank, 2**16, layers))
+
+
+def test_mixture_fused_wide_device_triple_and_past_the_fold():
+    """The device triple against the scalars, folded (3 sources) and past
+    the fold (12 sources: ``mixture_source_keys`` first, two launches)."""
+    seed, epoch = (1 << 40) + 0xFFFFFFF7, 0xFFFFFFF0
+    t = _triple(seed, epoch)
+    for sources in (MIX_SPECS[0][1],
+                    [2**31 + 1000 * i for i in range(12)]):
+        ps = MixtureSpec(sources, [1 + i % 5 for i in range(len(sources))],
+                         windows=8192)
+        folds = ck.mixture_folds(ps, core.DEFAULT_ROUNDS)
+        assert folds == (len(sources) == 3)
+        ck.reset_launches()
+        want = mixture_epoch_indices_cuda(ps, seed, epoch, 5, 4096)
+        assert ck.launches["mixture_fused_wide"] == 1
+        assert ck.launches["mixture_source_keys"] == int(not folds)
+        assert torch.equal(mixture_epoch_indices_cuda(
+            ps, None, None, 5, 4096, triple=t), want)
+        assert torch.equal(want, ck.mixture_fused_wide_ref(
+            None, ps, seed, epoch, rank=5, world=4096,
+            num_samples=want.numel(), wide_pos=True, device="cuda"))
+
+
+def test_mixture_fused_false_launches_the_wide_kernel():
+    """``fused=False`` on a spec the fused law takes: one
+    ``mixture_fused_wide`` launch, the same stream as ``mixture_fused``."""
+    ps = MixtureSpec([700_000, 200_000, 100_000], [70, 20, 10],
+                     windows=8192)
+    ck.reset_launches()
+    masked = mixture_epoch_indices_cuda(ps, 0, 1, 5, 8, fused=False)
+    assert ck.launches["mixture_fused_wide"] == 1
+    assert sum(ck.launches.values()) == 1
+    assert masked.dtype == torch.int32
+    assert torch.equal(masked, mixture_epoch_indices_cuda(ps, 0, 1, 5, 8))
+    assert ck.launches["mixture_fused"] == 1
+
+
 # ---------------------------------------------------- shard mode (§7)
 _SHARD_RNG = np.random.default_rng(11)
 #: (id, shard sizes, shard-id stream)

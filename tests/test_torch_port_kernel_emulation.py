@@ -1,19 +1,20 @@
-"""The CUDA sources of the weighted and positions kernels, compiled for the
-host and run through their wrappers on CPU tensors, against the plain
-versions.
+"""The CUDA sources of the weighted, positions and mixture kernels, compiled
+for the host and run through their wrappers on CPU tensors, against the
+plain versions.
 
 A CUDA kernel has no interpret mode, so the card tests
 (``tests/test_torch_port_gpu.py``) are the kernels' judges.  This file
 reads the same sources a second way: ``g++`` compiles
-``csrc/sampling_kernels.cu`` and ``csrc/index_kernels.cu`` against a small
-host header that stands in for the CUDA builtins (one block of one
+``csrc/sampling_kernels.cu``, ``csrc/index_kernels.cu`` and
+``csrc/mixture_kernels.cu`` against a small host header that stands in for the CUDA builtins (one block of one
 thread: every launch runs its grid-stride loop over all lanes in one
 call; shared memory is static storage), with the ``<<<...>>>`` launch
 syntax stripped.  The wrappers in ``ops/cuda_kernel.py`` then call that
 library as they call the card's, and the output is held against the
 plain version (tolerance 0): the lane arithmetic, the table layout, the
 argument order of the C ABI and the chain composition of
-``csrc/chain.cuh``.  What only the card shows (the real grid, warps,
+``csrc/chain.cuh``; for the mixture kernels also their routing from the
+entry points of ``ops/mixture.py``, and the JAX package's numpy law.  What only the card shows (the real grid, warps,
 memory spaces) stays with the card tests.  Skips where there is no g++.
 """
 
@@ -32,8 +33,9 @@ from partiallyshuffledistributedsampler_tpu_torch.ops import (
     cuda_kernel as ck,
 )
 from partiallyshuffledistributedsampler_tpu_torch.sampling import alias as A
+from test_torch_port_mixture_wide import MIX_SPECS, boundary_positions
 
-#: the CUDA builtins the two sources use, for one thread of one block
+#: the CUDA builtins the sources use, for one thread of one block
 _HOST_CUDA_H = r"""
 #pragma once
 #include <cstddef>
@@ -75,7 +77,7 @@ inline void __syncthreads() {}
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    """``{name: path}`` of the two sources built for the host."""
+    """``{name: path}`` of the three sources built for the host."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel sources for the host")
@@ -84,7 +86,7 @@ def host_libs(tmp_path_factory):
     for header in ck._HEADERS:
         shutil.copy(header, d)
     out = {}
-    for name in ("sampling", "index"):
+    for name in ("sampling", "index", "mixture"):
         src = open(ck._SOURCES[name]).read()
         src = re.sub(r"<<<[^>]*>>>", "", src)
         src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
@@ -212,4 +214,141 @@ def test_positions_kernel_chain_matches_plain_version(
         got = kernel(n, window, 5, 2, device="cpu", **kw)
         assert torch.equal(got, ck.index_positions_ref(
             n, window, 5, 2, device="cpu", **kw))
+    assert sum(ck.launches.values()) == 2
+
+
+# ------------------------------------------------------------- mixtures
+def _mix_spec(sid):
+    from partiallyshuffledistributedsampler_tpu_torch import MixtureSpec
+
+    _sid, sources, weights, skw = next(c for c in MIX_SPECS if c[0] == sid)
+    return MixtureSpec(sources, weights, **skw)
+
+
+def _rank_cases(spec):
+    """(epoch_samples, world, rank, partition) of rank-form launches: the
+    whole mixture over a wide world (uint64 positions), a blocked epoch
+    past 2^31, and a short strided epoch (uint32 positions)."""
+    return [(None, 2**22, 3_000_001, "strided"),
+            (2**31 + 5000, 2**20, 777_777, "blocked"),
+            (5000, 3, 2, "strided")]
+
+
+@pytest.mark.parametrize("sid", [c[0] for c in MIX_SPECS])
+def test_mixture_kernel_sources_match_plain_versions(sid, host_kernels):
+    """``mixture_fused_wide`` (and ``mixture_fused`` where every source is
+    below 2^31) through their wrappers: keys folded and given, the rank
+    form and the positions form, 64- and 32-bit positions."""
+    from partiallyshuffledistributedsampler_tpu_torch.ops import mixture as M
+
+    spec = _mix_spec(sid)
+    pairs = [("mixture_fused_wide", ck.mixture_fused_wide,
+              ck.mixture_fused_wide_ref)]
+    if spec.fused_applies():
+        pairs.append(("mixture_fused", ck.mixture_fused,
+                      ck.mixture_fused_ref))
+    given = ck.mixture_source_keys(spec, 2**40 + 9, 3, device="cpu")
+    assert torch.equal(given, ck.mixture_source_keys_ref(
+        spec, 2**40 + 9, 3, device="cpu"))
+    wide_pos = torch.from_numpy(boundary_positions(spec))
+    narrow_pos = torch.from_numpy(np.concatenate([
+        _RNG.integers(0, 2**31 - 2 * spec.block, 2000),
+        boundary_positions(spec, passes=(0,))]))
+    narrow_pos = narrow_pos[narrow_pos < 2**31 - 2 * spec.block]
+    for name, kernel, plain in pairs:
+        launches = ck.launches[name]
+        for keys in (None, given):
+            kw = dict(device="cpu") if keys is None else {}
+            for pos, wide in ((wide_pos, True), (narrow_pos, False)):
+                got = kernel(keys, spec, 2**40 + 9, 3, positions=pos,
+                             wide_pos=wide, **kw)
+                want = plain(keys, spec, 2**40 + 9, 3, positions=pos,
+                             wide_pos=wide, **kw)
+                assert got.dtype == want.dtype == spec.out_dtype()
+                assert torch.equal(got, want), (name, keys is None, wide)
+            for es, world, rank, partition in _rank_cases(spec):
+                _t, ns, total = M.mixture_epoch_sizes(spec, es, world, False)
+                args = dict(rank=rank, world=world, num_samples=ns,
+                            partition=partition,
+                            wide_pos=total + spec.block > core.INT32_MAX,
+                            **kw)
+                for law in ({}, dict(shuffle=False),
+                            dict(order_windows=False, rounds=7)):
+                    if law.get("rounds", 24) != 24 and keys is not None:
+                        continue  # the given buffer holds 24 rounds
+                    got = kernel(keys, spec, 2**40 + 9, 3, **args, **law)
+                    want = plain(keys, spec, 2**40 + 9, 3, **args, **law)
+                    assert torch.equal(got, want), (name, es, law)
+        assert ck.launches[name] - launches == 2 * (2 + 3 * 3) - 3
+    assert ck.launches["mixture_source_keys"] == 1
+
+
+def test_mixture_kernel_sources_wide_equals_narrow(host_kernels):
+    """On a spec that both kernels take, their outputs are one stream."""
+    spec = _mix_spec("small")
+    pos = torch.from_numpy(np.concatenate([
+        boundary_positions(spec), _RNG.integers(0, 2**36, 3000)]))
+    for wide in (True, False):
+        p = pos if wide else pos[pos < 2**31 - 2 * spec.block]
+        assert torch.equal(
+            ck.mixture_fused(None, spec, 7, 1, positions=p, wide_pos=wide,
+                             device="cpu"),
+            ck.mixture_fused_wide(None, spec, 7, 1, positions=p,
+                                  wide_pos=wide, device="cpu"))
+    assert ck.launches["mixture_fused"] == ck.launches[
+        "mixture_fused_wide"] == 2
+
+
+@pytest.mark.parametrize("sid", ["past-2^31", "past-2^32", "tail-1"])
+def test_mixture_entries_route_to_the_wide_kernel_source(sid, host_kernels):
+    """The entry points of ``ops/mixture.py`` on a (host-built) card: a
+    spec with a source of 2^31 or more launches ``mixture_fused_wide``
+    once a regen, and the ids equal the JAX package's numpy law."""
+    from partiallyshuffledistributedsampler_tpu.ops import mixture as J
+    from partiallyshuffledistributedsampler_tpu_torch import (
+        mixture_elastic_indices_cuda,
+        mixture_epoch_indices_cuda,
+        mixture_stream_at_cuda,
+    )
+
+    _sid, sources, weights, skw = next(c for c in MIX_SPECS if c[0] == sid)
+    js, ps = J.MixtureSpec(sources, weights, **skw), _mix_spec(sid)
+    world = 2**22
+    for rank in (0, world - 1):
+        got = mixture_epoch_indices_cuda(ps, 11, 2, rank, world,
+                                         device="cpu")
+        np.testing.assert_array_equal(
+            got.numpy(), J.mixture_epoch_indices_np(js, 11, 2, rank, world))
+    pos = boundary_positions(ps)
+    np.testing.assert_array_equal(
+        mixture_stream_at_cuda(pos, ps, 11, 2, device="cpu").numpy(),
+        J.mixture_stream_at_np(pos, js, 11, 2))
+    layers = [(world // 2, 300)]
+    np.testing.assert_array_equal(
+        mixture_elastic_indices_cuda(ps, 11, 2, 5, world, layers,
+                                     device="cpu").numpy(),
+        J.mixture_elastic_indices_np(js, 11, 2, 5, world, layers))
+    assert ck.launches["mixture_fused_wide"] == 4
+    assert sum(ck.launches.values()) == 4
+
+
+def test_mixture_entries_route_fused_false_to_the_wide_kernel_source(
+        host_kernels):
+    """``fused=False`` on a spec the fused law takes launches
+    ``mixture_fused_wide``; ``fused`` None launches ``mixture_fused``; the
+    two are one stream.  ``fused=True`` on a wide spec raises."""
+    from partiallyshuffledistributedsampler_tpu_torch import (
+        mixture_epoch_indices_cuda,
+    )
+
+    spec = _mix_spec("small")
+    masked = mixture_epoch_indices_cuda(spec, 3, 1, 1, 3, fused=False,
+                                        device="cpu")
+    assert ck.launches["mixture_fused_wide"] == 1
+    assert torch.equal(masked, mixture_epoch_indices_cuda(spec, 3, 1, 1, 3,
+                                                          device="cpu"))
+    assert ck.launches["mixture_fused"] == 1
+    with pytest.raises(ValueError, match="fused evaluation"):
+        mixture_epoch_indices_cuda(_mix_spec("past-2^31"), 3, 1, 1, 3,
+                                   fused=True, device="cpu")
     assert sum(ck.launches.values()) == 2

@@ -216,6 +216,7 @@ def test_cpu_routing_launches_no_kernel():
                            "index_amortized_wide": 0,
                            "index_positions": 0, "index_positions_wide": 0,
                            "mixture_source_keys": 0, "mixture_fused": 0,
+                           "mixture_fused_wide": 0,
                            "shard_row_keys": 0, "shard_expand": 0,
                            "weighted_stream": 0, "weighted_stream_wide": 0}
 
