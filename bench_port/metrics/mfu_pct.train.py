@@ -1,0 +1,12 @@
+"""Model FLOPs of the window's steps (counts/model.py) over its wall,
+against the card's dense bf16 peak (counts/peaks.py), in %."""
+
+from bench_port.counts import peaks
+
+
+def read(ctx):
+    h, flops = ctx["host"], ctx["counts"].get("train_step_flops")
+    if not h.get("steps") or flops is None:
+        return None
+    rate = flops * h["steps"] / h["wall_s"]
+    return 100.0 * rate / peaks.BF16_DENSE_FLOPS
