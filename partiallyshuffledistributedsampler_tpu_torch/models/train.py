@@ -21,6 +21,11 @@ passes under ``torch.cuda.set_sync_debug_mode("error")``).  Epoch e+1's
 regen is launched ahead of epoch e's steps, so the host never waits on
 it and the card has it before e+1 begins.
 
+Traced (``telemetry``), a step is the span ``step`` over
+``step.forward`` (the rows' gather and the loss), ``step.backward``,
+``step.allreduce`` (world > 1) and ``step.optimizer``, each with its
+device interval on the card.
+
 The JAX package's Megatron tp placement has no counterpart: it is a
 layout hint that does not change results, the sampler partitions only dp,
 and a GPT-2-small or ViT-L/16 model fits one H100 whole.
@@ -43,6 +48,7 @@ from ..parallel.sharded import (
     sharded_epoch_indices,
 )
 from ..sampler.device_iterator import batch_index_window
+from ..telemetry import span as _span
 from .gpt import GPTConfig, forward, init_params
 
 #: optax.adamw(3e-4)'s hyperparameters (torch's default weight decay is
@@ -92,26 +98,34 @@ def make_step(opt: torch.optim.Optimizer, mesh: DeviceMesh, batch_per_dp: int,
     world, _rank = identity_from_mesh(mesh, mesh_axis(mesh))
     group = mesh.get_group(mesh_axis(mesh))
     params = [p for g in opt.param_groups for p in g["params"]]
+    # where the step's phases record their device time when traced
+    dev = params[0].device if params else None
 
     def step_fn(model, epoch_idx: torch.Tensor, step, *tables):
-        win = batch_index_window(epoch_idx, step, batch_per_dp)
-        opt.zero_grad(set_to_none=True)
-        loss = loss_of(model, win, *tables)
-        loss.backward()
-        loss = loss.detach()
-        if world > 1:
-            # the gradients and the loss in one buffer, one all-reduce
-            flat = torch.cat([p.grad.reshape(-1) for p in params]
-                             + [loss.reshape(1)])
-            dist.all_reduce(flat, group=group)
-            flat /= world
-            at = 0
-            for p in params:
-                p.grad.copy_(flat[at:at + p.numel()].view_as(p))
-                at += p.numel()
-            loss = flat[-1]
-        opt.step()
-        return loss
+        with _span("step", device_ms=dev):
+            win = batch_index_window(epoch_idx, step, batch_per_dp)
+            opt.zero_grad(set_to_none=True)
+            with _span("step.forward", device_ms=dev):
+                loss = loss_of(model, win, *tables)
+            with _span("step.backward", device_ms=dev):
+                loss.backward()
+            loss = loss.detach()
+            if world > 1:
+                with _span("step.allreduce", device_ms=dev):
+                    # the gradients and the loss in one buffer, one
+                    # all-reduce
+                    flat = torch.cat([p.grad.reshape(-1) for p in params]
+                                     + [loss.reshape(1)])
+                    dist.all_reduce(flat, group=group)
+                    flat /= world
+                    at = 0
+                    for p in params:
+                        p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+                        at += p.numel()
+                    loss = flat[-1]
+            with _span("step.optimizer", device_ms=dev):
+                opt.step()
+            return loss
 
     return step_fn
 

@@ -29,8 +29,10 @@ any device, with the same amortized/general routing.
 
 The regen and the remainder run inside the telemetry spans
 ``psds_epoch_regen`` and ``psds_elastic_regen`` (the JAX package's names
-and attributes, ``ops/xla.py``) and a profiler range of the same name.  A
-span times the host call only (the launch): it never waits for the card.
+and attributes, ``ops/xla.py``), which enter a profiler range of the same
+name while a profiler records.  A span times the host call (the launch):
+it never waits for the card; traced on a CUDA device, the regen's span
+also records its device interval.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import numbers
 
 import torch
 
-from ..telemetry import span as _span
+from ..telemetry import profiler_range, span as _span
 from . import core, cuda_kernel
 
 
@@ -157,8 +159,7 @@ def epoch_indices_cuda(
     wide = core.is_wide(n)
     # host span and profiler range share one name, as the JAX package's
     # span and device annotation do
-    with _span("psds_epoch_regen", n=n, world=world), \
-            torch.profiler.record_function("psds_epoch_regen"):
+    with _span("psds_epoch_regen", n=n, world=world, device_ms=device):
         if amortize and _amortized_applicable(n, window, world, shuffle,
                                               partition):
             amortized = (cuda_kernel.index_amortized_wide if wide
@@ -201,7 +202,7 @@ def stream_indices_at_cuda(
                                               dtype=torch.int64)
     kernel = (cuda_kernel.index_positions_wide if core.is_wide(n)
               else cuda_kernel.index_positions)
-    with torch.profiler.record_function("psds_stream_at"):
+    with profiler_range("psds_stream_at"):
         return kernel(n, window, seed, epoch, positions=positions,
                       shuffle=shuffle, order_windows=order_windows,
                       rounds=rounds)
@@ -233,9 +234,7 @@ def elastic_indices_cuda(
     cuda_kernel.device_kind(device)
     kernel = (cuda_kernel.index_positions_wide if core.is_wide(int(n))
               else cuda_kernel.index_positions)
-    with _span("psds_elastic_regen", epoch=_attr(epoch),
-               rank=_attr(rank)), \
-            torch.profiler.record_function("psds_elastic_regen"):
+    with _span("psds_elastic_regen", epoch=_attr(epoch), rank=_attr(rank)):
         return kernel(n, window, seed, epoch, rank=rank, world=world,
                       num_samples=num_samples, chain=chain,
                       partition=partition, shuffle=shuffle,

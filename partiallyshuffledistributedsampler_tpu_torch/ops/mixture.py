@@ -49,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..telemetry import profiler_range
 from . import core, cuda_kernel
 
 #: per-source seed stride (SPEC.md §8.3): a 64-bit odd constant distinct
@@ -852,7 +853,7 @@ def mixture_epoch_indices_cuda(
         raise ValueError(
             f"partition must be 'strided' or 'blocked', got {partition!r}"
         )
-    with torch.profiler.record_function("psds_mixture_regen"):
+    with profiler_range("psds_mixture_regen"):
         kernel = _kernel_route(spec, device, fused, shuffle)
         if kernel is not None:
             return kernel(
@@ -914,7 +915,7 @@ def mixture_stream_at_cuda(
     pmax = int(p.max()) if p.numel() else 0
     if big_positions is None:
         big_positions = wide_positions(pmax, spec)
-    with torch.profiler.record_function("psds_mixture_stream_at"):
+    with profiler_range("psds_mixture_stream_at"):
         return _stream_at_positions(
             p, spec, seed, epoch, shuffle=shuffle,
             order_windows=order_windows, rounds=rounds,
@@ -954,7 +955,7 @@ def mixture_elastic_indices_cuda(
     )
     if remaining == 0 or ns == 0:
         return torch.empty(0, dtype=spec.out_dtype(), device=device)
-    with torch.profiler.record_function("psds_mixture_elastic_regen"):
+    with profiler_range("psds_mixture_elastic_regen"):
         pos = elastic_positions(chain, remaining, rank, world, ns, partition,
                                 wide, device)
         return _stream_at_positions(

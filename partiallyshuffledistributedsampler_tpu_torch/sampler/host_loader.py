@@ -37,6 +37,12 @@ the consumer's current stream waits on where the batch is yielded; the
 batch's memory is recorded on that stream so the allocator cannot reuse
 it while the consumer's kernels read it.  The gather is numpy's, so
 dtypes torch barely supports (uint16 token rows) travel as bytes.
+
+Traced (``telemetry``), each batch is a ``loader.gather`` and a
+``loader.copy`` span (the copy's enqueue) on the prefetch thread, and a
+``loader.wait`` span where the consumer takes it from the queue.  The
+counters of ``metrics`` (always kept) count the batches served, the bytes
+gathered, and the batches that were ready when the consumer asked.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from ..telemetry import NULL_SPAN
 from ..telemetry import enabled as _tel_enabled
 from ..telemetry import span as _span
 from ..utils.autotune import pick_backend
+from ..utils.metrics import MetricsRegistry
 from ..utils.watchdog import StallError
 
 _SENTINEL = object()
@@ -335,6 +342,8 @@ class HostDataLoader:
             )
             self._regen_stream = torch.cuda.Stream(self._regen_device)
         self.boundary_prefetch = bool(boundary_prefetch)
+        #: ``batches_served``, ``bytes_gathered``, ``batches_ready``
+        self.metrics = MetricsRegistry()
         self._boundary_lock = new_lock("loader.boundary")
         self._boundary_thread: Optional[threading.Thread] = None
         self._boundary_box = None  # (epoch, generation, idx or None)
@@ -848,8 +857,12 @@ class HostDataLoader:
                             return
                         F.fire("loader.prefetch")
                         lo = s * self.batch
-                        item = self._to_device(
-                            self._gather(idx[lo:lo + self.batch]))
+                        with _span("loader.gather", step=s):
+                            host = self._gather(idx[lo:lo + self.batch])
+                        self.metrics.inc("bytes_gathered", sum(
+                            a.nbytes for a, _ in host.values()))
+                        with _span("loader.copy", step=s):
+                            item = self._to_device(host)
                         progress["ts"] = time.monotonic()
                         if not _put(item):
                             return
@@ -873,15 +886,23 @@ class HostDataLoader:
         )
         try:
             while True:
-                try:
-                    item = q.get(timeout=poll)
-                except queue.Empty:
-                    self._check_stall(t, progress)
-                    continue
+                # the consumer is the queue's one reader: a batch queued
+                # now is the one the get below returns at once
+                ready = not q.empty()
+                with _span("loader.wait"):
+                    while True:
+                        try:
+                            item = q.get(timeout=poll)
+                            break
+                        except queue.Empty:
+                            self._check_stall(t, progress)
                 if item is _SENTINEL:
                     break
                 if item is _ERROR:
                     raise errbox[0]
+                self.metrics.inc("batches_served")
+                if ready:
+                    self.metrics.inc("batches_ready")
                 out, ev = item
                 if ev is not None:
                     # the consumer's stream (this thread's) waits for the

@@ -23,6 +23,12 @@ The JAX package splits its device expansion into per-size-class programs,
 power-of-two buckets and a scatter to bound its compile count; a kernel
 that takes the shard size at run time has no compile count, so nothing of
 that split carries over.
+
+Traced (``telemetry``), a shard-mode regen is the span
+``psds_shard_regen`` (with the regen's device interval on the card) over
+``shard.tables`` (the size tables' lookup), the shard order's
+``psds_epoch_regen``, ``shard.row_keys`` and ``shard.expand`` (the two
+launches and the host routing around each).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from ..ops.shard import (  # noqa: F401
     shard_tables,
     shuffle_mode,
 )
+from ..telemetry import span as _span
 from .torch_shim import PartiallyShuffleDistributedSampler
 
 #: shards per block of the generator ``expand_shard_indices``
@@ -221,7 +228,8 @@ def _expand(shard_ids, tables, *, seed, epoch, full: bool, w: int,
             lo, hi = (int(v) for v in torch.aminmax(sids))
             _validate_sids(np.array([lo, hi]), tables.num_shards)
         sids = sids.to(torch.int32).contiguous()
-        rowtab, m_of = row_keys(sids, M is None)
+        with _span("shard.row_keys"):
+            rowtab, m_of = row_keys(sids, M is None)
         if M is not None:
             ends, lanes = None, sids.numel() * M
         else:
@@ -238,10 +246,12 @@ def _expand(shard_ids, tables, *, seed, epoch, full: bool, w: int,
             lanes = int(ends_np[-1])
             ends = torch.from_numpy(ends_np).to(dev)
         sids = torch.from_numpy(ids.astype(np.int32)).to(dev)
-        rowtab, _m = row_keys(sids, False)
+        with _span("shard.row_keys"):
+            rowtab, _m = row_keys(sids, False)
     if lanes == 0:
         return empty
-    return expand(rowtab, sids, ends, lanes)
+    with _span("shard.expand", lanes=lanes):
+        return expand(rowtab, sids, ends, lanes)
 
 
 def expand_shard_indices_generic(
@@ -396,9 +406,12 @@ class PartialShuffleShardSampler(PartiallyShuffleDistributedSampler):
         e = self.epoch if epoch is None else int(epoch)
         full, w = shuffle_mode(within_shard_shuffle)
         device = "cuda" if self.backend == "cuda" else "cpu"
-        tables = shard_tables(shard_sizes, device)
-        return _expand(
-            self._shard_ids(e), tables, seed=self.seed, epoch=e, full=full,
-            w=w, rounds=self.rounds, plain=False,
-            trusted=tables.num_shards >= self.n,
-        )
+        with _span("psds_shard_regen", n=self.n, world=self.num_replicas,
+                   device_ms=device):
+            with _span("shard.tables"):
+                tables = shard_tables(shard_sizes, device)
+            return _expand(
+                self._shard_ids(e), tables, seed=self.seed, epoch=e,
+                full=full, w=w, rounds=self.rounds, plain=False,
+                trusted=tables.num_shards >= self.n,
+            )

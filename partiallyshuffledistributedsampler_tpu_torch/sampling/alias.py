@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops import core
+from ..telemetry import profiler_range
 
 __all__ = [
     "AliasTable", "build_alias_table",
@@ -385,7 +386,7 @@ def weighted_epoch_indices_cuda(
         raise ValueError(f"epoch_samples must be >= 1, got {T}")
     _check_rank(rank, world)
     num_samples, _ = core.shard_sizes(T, world, drop_last)
-    with torch.profiler.record_function("psds_weighted_regen"):
+    with profiler_range("psds_weighted_regen"):
         return kernel_for(T)(
             table, source_sizes, seed, epoch, epoch_samples=T,
             window=window, shuffle=shuffle, rounds=rounds, rank=int(rank),
@@ -411,7 +412,7 @@ def weighted_elastic_indices_cuda(
     if remaining == 0 or num_samples == 0:
         ck.device_kind(device)
         return torch.empty(0, dtype=out_dtype(source_sizes), device=device)
-    with torch.profiler.record_function("psds_weighted_elastic_regen"):
+    with profiler_range("psds_weighted_elastic_regen"):
         return kernel_for(T)(
             table, source_sizes, seed, epoch, epoch_samples=T,
             window=window, shuffle=shuffle, rounds=rounds, rank=int(rank),
@@ -430,7 +431,7 @@ def weighted_stream_at_cuda(positions, table, source_sizes, seed, epoch, *,
 
     ck.device_kind(device)
     p = as_positions(positions, torch.device(device))
-    with torch.profiler.record_function("psds_weighted_at"):
+    with profiler_range("psds_weighted_at"):
         return ck.weighted_stream_wide(
             table, source_sizes, seed, epoch, positions=p, window=window,
             shuffle=shuffle, rounds=rounds, retry=retry)

@@ -14,11 +14,16 @@ Enable programmatically::
     telemetry.configure(enabled=True, dump_dir="/tmp/psds-flight")
 
 or with ``PSDS_TELEMETRY=1`` (and optionally ``PSDS_FLIGHT_DIR=...``)
-in the environment before import.  This module is dependency-free and
-imports nothing from the rest of the package but the lock factory, so
+in the environment before import.  This module imports torch and
+nothing from the rest of the package but the lock factory, so
 every layer — the fault runtime, the regen entry points of ``ops/cuda.py``,
-the loader — can hook into it without cycles.  A span times host calls
-only: it never synchronizes a CUDA stream.
+the loader — can hook into it without cycles.  A span times host calls:
+it never synchronizes a CUDA stream.  Its entry's ``start_ns`` places it
+on ``torch.profiler``'s clock, and a span opened with ``device_ms=`` a
+CUDA device carries the device time between two events it recorded,
+read when the ring is read.  While a profiler records, each span (traced
+or not) and each :func:`profiler_range` enters a ``record_function``
+range of its name; while none records, none is entered.
 """
 
 from __future__ import annotations
@@ -28,13 +33,13 @@ from typing import Optional
 
 from .export import JsonlSink, render_prometheus
 from .recorder import FlightRecorder
-from .trace import NULL_SPAN, Span, Tracer
+from .trace import NULL_SPAN, Span, Tracer, profiler_range
 
 __all__ = [
     "Span", "Tracer", "FlightRecorder", "JsonlSink", "render_prometheus",
     "NULL_SPAN", "configure", "reset", "enabled", "tracer", "recorder",
     "span", "current", "annotate", "event", "snapshot", "dump",
-    "auto_dump",
+    "auto_dump", "profiler_range",
 ]
 
 _RECORDER = FlightRecorder(dump_dir=os.environ.get("PSDS_FLIGHT_DIR"))
@@ -104,9 +109,10 @@ def recorder() -> FlightRecorder:
 
 
 def span(name: str, **kwargs):
-    """Open a span on the global tracer (``trace=``/``parent=`` pass
-    through; everything else becomes span attributes).  Returns the
-    shared no-op span when tracing is off."""
+    """Open a span on the global tracer (``trace=``/``parent=``/
+    ``device_ms=`` pass through; everything else becomes span
+    attributes).  Returns the shared no-op span when tracing is off (a
+    bare profiler range while a profiler records)."""
     return _TRACER.span(name, **kwargs)
 
 

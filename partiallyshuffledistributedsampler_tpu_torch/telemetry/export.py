@@ -11,7 +11,10 @@ Two ways out of the process:
 
 * :class:`JsonlSink` is a live entry exporter for the flight recorder:
   buffered appends with periodic flush, so tracing a long run streams
-  to disk without an fsync per span.
+  to disk without an fsync per span.  An entry whose device interval the
+  card has not reached yet waits in the buffer for a later flush (an
+  explicit ``flush()`` or ``close()`` waits for it), so the sink never
+  makes the span that wrote it wait for the card.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import time
 from typing import Optional
 
 from ..analysis.lockorder import new_lock
+from .trace import pending, resolve
 
 
 def _fsync_fileobj(f) -> None:
@@ -109,38 +113,44 @@ class JsonlSink:
         self.batch = max(1, int(batch))
         self.durable = bool(durable)
         self._lock = new_lock("telemetry.sink")
-        self._buf: list[str] = []
+        self._buf: list[dict] = []
         self._last_flush = time.monotonic()
         self._f = open(self.path, "a", encoding="utf-8")
         self.written = 0
 
     def write(self, entry: dict) -> None:
-        line = json.dumps(entry, separators=(",", ":"), default=repr)
         with self._lock:
-            self._buf.append(line)
+            self._buf.append(entry)
             due = (len(self._buf) >= self.batch
                    or time.monotonic() - self._last_flush >= self.interval_s)
             if due:
-                self._flush_locked()
+                self._flush_locked(wait=False)
 
     def flush(self) -> None:
         with self._lock:
-            self._flush_locked()
+            self._flush_locked(wait=True)
             if self.durable and not self._f.closed:
                 _fsync_fileobj(self._f)
 
-    def _flush_locked(self) -> None:
-        if self._buf:
-            self._f.write("\n".join(self._buf) + "\n")
+    def _flush_locked(self, wait: bool) -> None:
+        """Write the buffered entries in order, up to the first whose
+        device interval is still pending (``wait``: all of them)."""
+        n = len(self._buf) if wait else next(
+            (i for i, e in enumerate(self._buf) if pending(e)),
+            len(self._buf))
+        if n:
+            self._f.write("\n".join(
+                json.dumps(resolve(e), separators=(",", ":"), default=repr)
+                for e in self._buf[:n]) + "\n")
             self._f.flush()
-            self.written += len(self._buf)
-            self._buf.clear()
+            self.written += n
+            del self._buf[:n]
         self._last_flush = time.monotonic()
 
     def close(self) -> None:
         with self._lock:
             if not self._f.closed:
-                self._flush_locked()
+                self._flush_locked(wait=True)
                 if self.durable:
                     _fsync_fileobj(self._f)
                 self._f.close()

@@ -22,6 +22,7 @@ import time
 from collections import deque
 from typing import Optional
 from ..analysis.lockorder import new_lock
+from .trace import jsonable, resolve
 
 
 class FlightRecorder:
@@ -60,13 +61,19 @@ class FlightRecorder:
             except Exception:  # lint: allow-broad-except(a broken exporter must never take down the data path)
                 pass
 
-    def snapshot(self, limit: Optional[int] = None) -> list[dict]:
+    def snapshot(self, limit: Optional[int] = None, *,
+                 wait: bool = True) -> list[dict]:
         """Most-recent-last copy of the ring (optionally the last
-        ``limit`` entries) — what the TRACE_DUMP RPC returns."""
+        ``limit`` entries) — what the TRACE_DUMP RPC returns.  A span's
+        device interval is resolved here, once: the entry keeps the
+        number.  ``wait=False`` leaves one the device has not reached
+        pending instead of waiting for it."""
         with self._lock:
             out = list(self._ring)
         if limit is not None and limit > 0:
             out = out[-int(limit):]
+        for e in out:
+            resolve(e, wait)
         return out
 
     def clear(self) -> None:
@@ -82,8 +89,10 @@ class FlightRecorder:
     def dump(self, path: str, *, reason: str = "manual",
              extra_entries=()) -> str:
         """Write the ring + ``extra_entries`` (typically open spans) to
-        ``path`` as JSONL.  First line is a metadata record."""
-        entries = self.snapshot()
+        ``path`` as JSONL.  First line is a metadata record.  A dump never
+        waits for the device (it may be what hung): a device interval not
+        reached yet is written as null."""
+        entries = self.snapshot(wait=False)
         extra_entries = list(extra_entries)
         with self._lock:
             self._dump_seq += 1
@@ -95,9 +104,11 @@ class FlightRecorder:
             "open_spans": len(extra_entries), "dropped": dropped,
         }, separators=(",", ":"))]
         for e in entries:
-            lines.append(json.dumps(e, separators=(",", ":"), default=repr))
+            lines.append(json.dumps(e, separators=(",", ":"),
+                                    default=jsonable))
         for e in extra_entries:
-            lines.append(json.dumps(e, separators=(",", ":"), default=repr))
+            lines.append(json.dumps(e, separators=(",", ":"),
+                                    default=jsonable))
         # the same atomic write+fsync path the snapshots use: a
         # post-mortem written milliseconds before the host dies must
         # actually survive it, not sit in the page cache.  Deferred
