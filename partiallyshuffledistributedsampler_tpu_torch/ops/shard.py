@@ -21,6 +21,19 @@ holding a uint32 value, masked as in ``ops/core.py``.
 The per-shard size tables live on the device once per ``shard_sizes``
 (``shard_tables``); a regen uploads only what is new: the rank's shard
 ids, and where those came from the host, the prefix of their sizes.
+
+A regen launches first and confirms after: it queues its launches with
+the tables that the last regen over the same sizes object on its device
+confirmed (``remembered_tables``, found in O(1) by the object's identity
+and length), and only then compares their sizes with every one of the
+caller's (``confirm_tables``), while the card computes.  When they differ
+(the caller changed its sizes in place) the regen is a miss: it looks
+the tables up (``shard_tables``), launches again with them and drops the
+first output.  A sizes object with nothing remembered is looked up
+first.  Every regen is confirmed against the exact sizes passed, so the
+answer is the same lane for lane; a caller that changes its sizes in
+place on every regen pays one wasted launch each time.
+``table_checks`` counts the hits and misses.
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis.lockorder import new_lock
 from . import core
 
 #: SPEC.md §7 per-shard seed stride (the 64-bit golden ratio, as used by
@@ -213,15 +227,48 @@ class ShardTables:
 _tables: dict = {}
 _TABLES_CAP = 8
 
+#: guards ``_confirmed`` and ``table_checks``: an index server regenerates
+#: on several handler threads at once
+_lock = new_lock("ops.shard")
+#: the tables the last regen confirmed, by (device, id of the sizes
+#: object, number of sizes), each held with that object so that its id is
+#: no other object's while it is remembered
+_confirmed: dict = {}
+#: confirmations of a regen's remembered tables (reset with
+#: ``reset_table_checks``): a hit when the lookup returned the tables the
+#: regen launched with, a miss when it launched again
+table_checks = {"hits": 0, "misses": 0}
+
+
+def reset_table_checks() -> None:
+    with _lock:
+        for k in table_checks:
+            table_checks[k] = 0
+
+
+def _device(device) -> torch.device:
+    """``device`` with a CUDA device's index made explicit."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _remember_key(shard_sizes, device) -> tuple:
+    """Where the tables of this sizes object are remembered, read without
+    a pass over the sizes."""
+    count = (shard_sizes.size if isinstance(shard_sizes, np.ndarray)
+             else len(shard_sizes))
+    return (str(device), id(shard_sizes), count)
+
 
 def shard_tables(shard_sizes, device) -> ShardTables:
     """The tables of ``shard_sizes`` on ``device``, uploaded once per
     (sizes, device) and cached.  A lookup costs one pass over the sizes
     (their sum picks the entry, an exact comparison confirms it), not a
-    hash of them: this runs once per regen."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    hash of them.  A regen runs it after its launches, under the kernel
+    (``confirm_tables``), not before them."""
+    device = _device(device)
     sizes = np.asarray(shard_sizes, dtype=np.int64).reshape(-1)
     key = (str(device), sizes.size, int(sizes.sum()))
     tabs = _tables.get(key)
@@ -231,3 +278,36 @@ def shard_tables(shard_sizes, device) -> ShardTables:
             _tables.pop(next(iter(_tables)))
         _tables[key] = tabs
     return tabs
+
+
+def remembered_tables(shard_sizes, device) -> Optional[ShardTables]:
+    """The tables that the last regen over this same ``shard_sizes`` object
+    on ``device`` confirmed, or None.  Found in O(1), by the object and
+    not by its values: a guess to launch with, which ``confirm_tables``
+    holds to the sizes afterwards."""
+    with _lock:
+        held = _confirmed.get(_remember_key(shard_sizes, _device(device)))
+    return None if held is None else held[1]
+
+
+def confirm_tables(shard_sizes, device, guess=None) -> ShardTables:
+    """The tables of ``shard_sizes`` on ``device``, remembered for the next
+    regen over this ``shard_sizes`` object there: the ``guess`` a regen
+    launched with when it holds exactly these sizes (a hit in
+    ``table_checks``), else ``shard_tables``'s (a miss, where there was a
+    guess).  The guess is held to the sizes themselves, not to the cache,
+    so that arrays of one length and sum taking turns, which share an
+    entry of ``shard_tables``, still hit."""
+    if guess is not None and np.array_equal(
+            guess.sizes, np.asarray(shard_sizes, dtype=np.int64).reshape(-1)):
+        tables = guess
+    else:
+        tables = shard_tables(shard_sizes, device)
+    key = _remember_key(shard_sizes, tables.device)
+    with _lock:
+        if guess is not None:
+            table_checks["hits" if tables is guess else "misses"] += 1
+        if key not in _confirmed and len(_confirmed) >= _TABLES_CAP:
+            _confirmed.pop(next(iter(_confirmed)))
+        _confirmed[key] = (shard_sizes, tables)
+    return tables

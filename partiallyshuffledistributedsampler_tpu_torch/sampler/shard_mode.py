@@ -24,11 +24,17 @@ power-of-two buckets and a scatter to bound its compile count; a kernel
 that takes the shard size at run time has no compile count, so nothing of
 that split carries over.
 
+The two evaluations on size tables, and the sampler's
+``device_epoch_indices``, launch with the tables that the last one over
+the same sizes object confirmed, and confirm them after their launches
+(``_expand_confirmed``; ``ops/shard.py``).
+
 Traced (``telemetry``), a shard-mode regen is the span
 ``psds_shard_regen`` (with the regen's device interval on the card) over
-``shard.tables`` (the size tables' lookup), the shard order's
-``psds_epoch_regen``, ``shard.row_keys`` and ``shard.expand`` (the two
-launches and the host routing around each).
+the shard order's ``psds_epoch_regen``, ``shard.row_keys`` and
+``shard.expand`` (the two launches and the host routing around each),
+then ``shard.tables`` (the size tables' lookup, under the kernel, with
+``hit``), which a regen with no remembered tables runs first.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from ..ops.shard import (  # noqa: F401
     shuffle_mode,
 )
 from ..telemetry import span as _span
+from ..telemetry.trace import NULL_SPAN
 from .torch_shim import PartiallyShuffleDistributedSampler
 
 #: shards per block of the generator ``expand_shard_indices``
@@ -254,6 +261,47 @@ def _expand(shard_ids, tables, *, seed, epoch, full: bool, w: int,
         return expand(rowtab, sids, ends, lanes)
 
 
+def _expand_confirmed(shard_ids, shard_sizes, device, *, id_space=None,
+                      traced: bool = False, **kw) -> torch.Tensor:
+    """``_expand`` of ``shard_ids`` over the tables of ``shard_sizes`` on
+    ``device``, launched before the tables are looked up: with the tables
+    the last expansion over this ``shard_sizes`` object confirmed
+    (``shard.remembered_tables``), then confirmed against every size while
+    the card computes (``shard.confirm_tables``).  On a miss the first
+    output (or error) is dropped and the expansion launched again with the
+    confirmed tables; with nothing remembered the lookup runs first.  Ids
+    in ``[0, id_space)`` by construction are trusted when the tables hold
+    as many shards.  ``traced`` times the confirmation as the span
+    ``shard.tables``, which only the sampler's regen opens."""
+    if isinstance(shard_ids, Iterator):
+        shard_ids = list(shard_ids)  # a relaunch reads the ids again
+
+    def launch(tables):
+        return _expand(shard_ids, tables, trusted=(
+            id_space is not None and tables.num_shards >= id_space), **kw)
+
+    def lookup(guess=None):
+        with (_span("shard.tables") if traced else NULL_SPAN) as s:
+            tables = shard.confirm_tables(shard_sizes, device, guess)
+            if guess is not None:
+                s.set("hit", tables is guess)
+        return tables
+
+    guess = shard.remembered_tables(shard_sizes, device)
+    if guess is None:
+        return launch(lookup())
+    try:
+        out = launch(guess)
+    except (ValueError, RuntimeError) as exc:
+        out = exc  # the guess's: raised only if the lookup confirms it
+    tables = lookup(guess)
+    if tables is not guess:
+        return launch(tables)
+    if isinstance(out, Exception):
+        raise out
+    return out
+
+
 def expand_shard_indices_generic(
     shard_ids,
     shard_sizes,
@@ -270,8 +318,9 @@ def expand_shard_indices_generic(
     full, w = shuffle_mode(within_shard_shuffle)
     device = (shard_ids.device if isinstance(shard_ids, torch.Tensor)
               else "cpu")
-    return _expand(shard_ids, shard_tables(shard_sizes, device), seed=seed,
-                   epoch=epoch, full=full, w=w, rounds=rounds, plain=True)
+    return _expand_confirmed(shard_ids, shard_sizes, device, seed=seed,
+                             epoch=epoch, full=full, w=w, rounds=rounds,
+                             plain=True)
 
 
 def expand_shard_indices_cuda(
@@ -296,9 +345,9 @@ def expand_shard_indices_cuda(
     int32[3] tensor on ``device``."""
     full, w = shuffle_mode(within_shard_shuffle)
     ck.device_kind(device)
-    return _expand(shard_ids, shard_tables(shard_sizes, device), seed=seed,
-                   epoch=epoch, full=full, w=w, rounds=rounds, triple=triple,
-                   plain=False)
+    return _expand_confirmed(shard_ids, shard_sizes, device, seed=seed,
+                             epoch=epoch, full=full, w=w, rounds=rounds,
+                             triple=triple, plain=False)
 
 
 def expand_shard_indices(
@@ -408,10 +457,8 @@ class PartialShuffleShardSampler(PartiallyShuffleDistributedSampler):
         device = "cuda" if self.backend == "cuda" else "cpu"
         with _span("psds_shard_regen", n=self.n, world=self.num_replicas,
                    device_ms=device):
-            with _span("shard.tables"):
-                tables = shard_tables(shard_sizes, device)
-            return _expand(
-                self._shard_ids(e), tables, seed=self.seed, epoch=e,
-                full=full, w=w, rounds=self.rounds, plain=False,
-                trusted=tables.num_shards >= self.n,
+            return _expand_confirmed(
+                self._shard_ids(e), shard_sizes, device, id_space=self.n,
+                traced=True, seed=self.seed, epoch=e, full=full, w=w,
+                rounds=self.rounds, plain=False,
             )

@@ -278,15 +278,16 @@ class PartialShuffleSpec:
                 ids.numpy(), self.shard_sizes, seed=self.seed, epoch=epoch,
                 within_shard_shuffle=self.within_shard_shuffle,
                 rounds=rounds)
-        from ..ops.shard import shard_tables, shuffle_mode
-        from ..sampler.shard_mode import _expand
+        from ..ops.shard import shuffle_mode
+        from ..sampler.shard_mode import _expand_confirmed
 
         full, w = shuffle_mode(self.within_shard_shuffle)
         # the ids come from the index kernels over len(shard_sizes) shards:
         # in range by construction, so the expansion reads nothing back
-        out = _expand(ids, shard_tables(self.shard_sizes, ids.device),
-                      seed=self.seed, epoch=epoch, full=full, w=w,
-                      rounds=rounds, plain=False, trusted=True)
+        out = _expand_confirmed(ids, self.shard_sizes, ids.device,
+                                id_space=len(self.shard_sizes),
+                                seed=self.seed, epoch=epoch, full=full, w=w,
+                                rounds=rounds, plain=False)
         return host_array(out).astype(np.int64, copy=False)
 
     def rank_unit_sizes(self, epoch: int, rank: int, *, layers=None):
