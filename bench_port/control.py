@@ -87,7 +87,7 @@ def main(argv=None) -> int:
     cseeds = seeds[:3]  # the control's and the faults' seeds
     runs = [(s, "sound") for s in seeds] + [(s, "control") for s in cseeds]
     runs += [(s, f) for f in args.faults.split(",") if f for s in cseeds]
-    train = cell["params"]["kind"] == "train_loader"
+    train = cell["params"]["kind"] in ("train_loader", "train_dp")
     rows = None
     for seed, mode in runs:
         t0 = time.perf_counter()

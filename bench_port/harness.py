@@ -5,24 +5,32 @@ Everything that belongs to one cell is found by name: the manifest
 configuration and its metrics; ``workloads/<cell>.json`` holds the
 traffic's parameters and the limits of its correctness checks;
 ``configs/<config>.json`` the configuration as it is run;
-``traffic/<kind>.py`` the one driver of that kind of traffic; and
-``metrics/<metric>.py`` the one reader of each per-layer metric.  A later
-change adds a cell, a configuration or a metric by adding files.
+``traffic/<kind>.py`` the one driver of that kind of traffic;
+``kinds/<kind>.py`` the model kind a configuration's ``model.kind`` names;
+and ``metrics/<metric>.py`` the one reader of each per-layer metric.  A
+later change adds a cell, a configuration, a model kind or a metric by
+adding files.
 
 A driver has the methods ``setup()``, ``window(seconds)`` (the untraced
 measured window: a dict of end-to-end values and host statistics),
 ``traced()`` (a bounded steady sub-window, run under the profiler),
 ``counts()`` (the work of one unit, for the readers), ``release()`` (frees
 the program's state once the peak memory is read) and ``checks()``
-(``[(name, value, limit)]`` after the reference has run).
+(``[(name, value, limit)]`` after the reference has run).  A driver that
+runs ranks in processes of its own on further cards also has ``close()``,
+which stops and waits for them after a run or a failure, and gives their
+peak memory (``peer_peak_bytes``) and traced device times
+(``peer_times``: ``[busy_s, window_s]`` a card).
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -96,11 +104,16 @@ def load_cell(name: str) -> dict:
                 end_to_end=e2e, per_layer=layer)
 
 
+@functools.lru_cache(maxsize=None)
+def traffic(kind: str):
+    """The driver module of a kind of traffic, loaded once a process."""
+    return load_file(os.path.join(HERE, "traffic", f"{kind}.py"),
+                     f"bench_port_traffic_{kind}")
+
+
 def make_driver(cell: dict, seed: int, device: str, **kw):
-    kind = cell["params"]["kind"]
-    mod = load_file(os.path.join(HERE, "traffic", f"{kind}.py"),
-                    f"bench_port_traffic_{kind}")
-    return mod.Driver(cell["config"], cell["params"], seed, device, **kw)
+    return traffic(cell["params"]["kind"]).Driver(
+        cell["config"], cell["params"], seed, device, **kw)
 
 
 def read_layer_metrics(cell: dict, ctx: dict) -> dict:
@@ -180,50 +193,64 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, *,
         dev = card(cell["entry"]["chips"])
         torch.cuda.reset_peak_memory_stats()
     driver = make_driver(cell, seed, device, fault=fault)
-    driver.setup()
-    setup_s = process_age_s()
-    for name, secs in getattr(driver, "setup_phases", ()):
-        print(f"setup {name}: {secs} s", file=sys.stderr)
-    host = driver.window(seconds)
-    summary = None
-    if trace:
-        from bench_port import trace as tr
+    try:
+        driver.setup()
+        setup_s = process_age_s()
+        for name, secs in getattr(driver, "setup_phases", ()):
+            print(f"setup {name}: {secs} s", file=sys.stderr)
+        host = driver.window(seconds)
+        summary = None
+        if trace:
+            from bench_port import trace as tr
 
-        summary = tr.traced(driver)
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
-    found = forbidden_modules()
-    if found:
-        raise BenchError("the window ran with forbidden modules loaded: "
-                         + ", ".join(found))
-    driver.release()
-    checks = driver.checks()
-    correct = all(v <= lim for _, v, lim in checks)
-    device_line = dict(platform="gpu" if on_card else "cpu",
-                       kind=dev["kind"] if on_card else "cpu",
-                       count=cell["entry"]["chips"],
-                       memory_peak_bytes=int(peak))
-    line = dict(correct=correct, attempted=int(host["attempted"]),
-                failed=int(driver.failed), device=device_line)
-    if trace:
-        ctx = dict(cell=cell, host=host, trace=summary,
-                   counts=driver.counts(), sms=dev["sms"],
-                   max_sm_mhz=float(nvidia_smi("clocks.max.sm")))
-        line["metrics"] = read_layer_metrics(cell, ctx)
-        device_line.update(busy_s=summary["busy_s"],
-                           window_s=summary["window_s"])
-        line["breakdown"] = dict(device_ops=summary["device_ops"],
-                                 idle_gaps=summary["idle_gaps"])
-    else:
-        values = dict(host["metrics"], setup_s=setup_s)
-        line["metrics"] = {m["name"]: {"value": float(values[m["name"]]),
-                                       "unit": m["unit"]}
-                           for m in cell["end_to_end"]}
-    if on_card:
-        device_line["power_limit_w"] = nvidia_smi("power.limit")
-    found = forbidden_modules()
-    if found:
-        raise BenchError("forbidden modules loaded: " + ", ".join(found))
-    checked = {name: (value, limit) for name, value, limit in checks}
-    line["checks"] = {name: {"value": v, "limit": lim}
-                      for name, (v, lim) in checked.items()}
-    return line, checked
+            summary = tr.traced(driver)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        found = forbidden_modules()
+        if found:
+            raise BenchError("the window ran with forbidden modules loaded: "
+                             + ", ".join(found))
+        t0 = time.perf_counter()
+        driver.release()
+        # the fullest card: a driver that runs ranks of its own reads theirs
+        peak = max(peak, getattr(driver, "peer_peak_bytes", 0))
+        t1 = time.perf_counter()
+        checks = driver.checks()
+        print(f"after the window: release {t1 - t0:.3f} s, reference and "
+              f"checks {time.perf_counter() - t1:.3f} s", file=sys.stderr)
+        correct = all(v <= lim for _, v, lim in checks)
+        device_line = dict(platform="gpu" if on_card else "cpu",
+                           kind=dev["kind"] if on_card else "cpu",
+                           count=cell["entry"]["chips"],
+                           memory_peak_bytes=int(peak))
+        line = dict(correct=correct, attempted=int(host["attempted"]),
+                    failed=int(driver.failed), device=device_line)
+        if trace:
+            ctx = dict(cell=cell, host=host, trace=summary,
+                       counts=driver.counts(), sms=dev["sms"],
+                       max_sm_mhz=float(nvidia_smi("clocks.max.sm")))
+            line["metrics"] = read_layer_metrics(cell, ctx)
+            # averaged over the cards: this process's, then its ranks'
+            cards = ([(summary["busy_s"], summary["window_s"])]
+                     + [tuple(t) for t in getattr(driver, "peer_times", ())])
+            device_line.update(busy_s=sum(b for b, _ in cards) / len(cards),
+                               window_s=sum(w for _, w in cards) / len(cards))
+            line["breakdown"] = dict(device_ops=summary["device_ops"],
+                                     idle_gaps=summary["idle_gaps"])
+        else:
+            values = dict(host["metrics"], setup_s=setup_s)
+            line["metrics"] = {m["name"]: {"value": float(values[m["name"]]),
+                                           "unit": m["unit"]}
+                               for m in cell["end_to_end"]}
+        if on_card:
+            device_line["power_limit_w"] = nvidia_smi("power.limit")
+        found = forbidden_modules()
+        if found:
+            raise BenchError("forbidden modules loaded: " + ", ".join(found))
+        checked = {name: (value, limit) for name, value, limit in checks}
+        line["checks"] = {name: {"value": v, "limit": lim}
+                          for name, (v, lim) in checked.items()}
+        return line, checked
+    finally:
+        close = getattr(driver, "close", None)
+        if close is not None:  # a driver with processes of its own
+            close()

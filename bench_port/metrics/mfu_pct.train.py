@@ -1,5 +1,6 @@
-"""Model FLOPs of the window's steps (counts/model.py) over its wall,
-against the card's dense bf16 peak (counts/peaks.py), in %."""
+"""Model FLOPs of the window's steps (counts/model.py; a data-parallel
+step's over all its ranks) over its wall, against the dense bf16 peak
+(counts/peaks.py) of the cell's cards, in %."""
 
 from bench_port.counts import peaks
 
@@ -9,4 +10,5 @@ def read(ctx):
     if not h.get("steps") or flops is None:
         return None
     rate = flops * h["steps"] / h["wall_s"]
-    return 100.0 * rate / peaks.BF16_DENSE_FLOPS
+    return 100.0 * rate / (peaks.BF16_DENSE_FLOPS
+                           * ctx["cell"]["entry"]["chips"])

@@ -31,3 +31,10 @@ def idle_pct(ctx: dict):
     if not t.get("window_s"):
         return None
     return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
+
+
+def nccl_kernels(trace: dict) -> dict:
+    """``{name: device seconds}`` of NCCL's kernels in the trace: names that
+    begin ``nccl`` (a ``void`` return type aside)."""
+    return {k: s for k, s in trace["kernel_s"].items()
+            if k.removeprefix("void ").startswith("nccl")}

@@ -9,9 +9,10 @@ LayerNorm's epsilon is 1e-6 and the LM head is untied, with a bias.
 
 ``run_steps`` follows the program's first training steps on the same
 weights and rows, with TF32 off, or one step from the program's own
-parameters and AdamW moments.  With ``fp8=True`` every linear layer's
-input and weight are rounded to float8 e4m3 (per-tensor scale from the
-absolute maximum) on the forward pass, the gradient passing straight
+parameters and AdamW moments; a step of a data-parallel job takes its
+ranks' batches in turn and their mean.  With ``fp8=True`` every linear
+layer's input and weight are rounded to float8 e4m3 (per-tensor scale from
+the absolute maximum) on the forward pass, the gradient passing straight
 through: the lower precision that serves as the correctness control.
 """
 
@@ -86,29 +87,30 @@ def vit_logits(w: dict, model: dict, images: torch.Tensor, fp8=False):
     return _linear(x, w["head.weight"], w["head.bias"], fp8)
 
 
-def loss(w: dict, model: dict, batch: dict, fp8=False) -> torch.Tensor:
-    """Mean next-token (GPT, ``batch["tokens"]`` ``[B, T+1]``) or class
-    (ViT, ``batch["images"]``, ``batch["labels"]``) negative
-    log-likelihood."""
-    if model["kind"] == "vit":
-        logits = vit_logits(w, model, batch["images"], fp8)
-        target = batch["labels"].long()
-    else:
-        tok = batch["tokens"]
-        logits = gpt_logits(w, model, tok[:, :-1], fp8)
-        target = tok[:, 1:]
+def nll(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``target`` under ``logits``."""
     logp = logits.log_softmax(-1)
     return -logp.gather(-1, target[..., None])[..., 0].mean()
 
 
+def loss(w: dict, model: dict, batch: dict, fp8=False) -> torch.Tensor:
+    """The model kind's mean loss of ``batch`` (``kinds/<kind>.py``
+    ``reference_loss``: GPT's next-token loss of ``batch["tokens"]`` ``[B,
+    T+1]``, ViT's class loss of ``batch["images"]`` and
+    ``batch["labels"]``)."""
+    from bench_port import kinds
+
+    return kinds.load(model["kind"]).reference_loss(w, model, batch, fp8)
+
+
 def run_steps(w0: dict, model: dict, opt: dict, batches, fp8=False,
               moments=None) -> dict:
-    """AdamW steps from the weights ``w0`` over ``batches`` (one dict a
-    step): each step's loss, each leaf's first-gradient norm and its
-    change's norm after the last step.  ``moments`` (``{leaf: (exp_avg,
-    exp_avg_sq, steps taken)}``) continues from a state part-way through
-    training; a leaf it lacks starts from nought.  TF32 stays off
-    throughout."""
+    """AdamW steps from the weights ``w0`` over ``batches`` (a dict a
+    step, or a list of the ranks' dicts): each step's loss, each leaf's
+    first-gradient norm and its change's norm after the last step.
+    ``moments`` (``{leaf: (exp_avg, exp_avg_sq, steps taken)}``) continues
+    from a state part-way through training; a leaf it lacks starts from
+    nought.  TF32 stays off throughout."""
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -133,9 +135,8 @@ def _run(w0, model, opt, batches, fp8, moments):
     eps, wd = opt["eps"], opt["weight_decay"]
     losses, grad_norms = [], None
     for i, batch in enumerate(batches, start=1):
-        lv = loss(w, model, batch, fp8)
-        grads = torch.autograd.grad(lv, list(w.values()))
-        losses.append(float(lv.detach()))
+        lv, grads = _loss_and_grads(w, model, batch, fp8)
+        losses.append(float(lv))
         if grad_norms is None:
             grad_norms = leaf_norms(dict(zip(w, grads)))
         with torch.no_grad():
@@ -151,6 +152,24 @@ def _run(w0, model, opt, batches, fp8, moments):
     with torch.no_grad():
         change = leaf_norms({k: w[k] - w0[k] for k in w})
     return dict(losses=losses, grad_norms=grad_norms, change_norms=change)
+
+
+def _loss_and_grads(w: dict, model: dict, batch, fp8: bool):
+    """The loss of one step and its gradient by leaf.  ``batch`` is a dict,
+    or a list of equal parts (the batches of a data-parallel job's ranks,
+    in rank order), taken one at a time to fit: their mean loss and mean
+    gradient, the mathematics of the ranks' all-reduced mean."""
+    if isinstance(batch, dict):
+        lv = loss(w, model, batch, fp8)
+        return lv.detach(), torch.autograd.grad(lv, list(w.values()))
+    total, acc = 0.0, None
+    for part in batch:
+        lv = loss(w, model, part, fp8)
+        g = torch.autograd.grad(lv, list(w.values()))
+        total = total + lv.detach()
+        acc = list(g) if acc is None else [a.add_(b) for a, b in zip(acc, g)]
+        del g
+    return total / len(batch), [a.div_(len(batch)) for a in acc]
 
 
 def leaf_norms(tensors: dict) -> dict:

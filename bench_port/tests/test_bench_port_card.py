@@ -40,10 +40,17 @@ def test_a_run_on_the_card(cell, trace):
     ("c4_1b_gpt2s.regen", "altered_answer"),
     ("wds_s1_vitl16.regen", "altered_answer"),
     ("c4_1b_gpt2s.train", "half_batch,frozen"),
-    ("wds_s1_vitl16.train", "half_batch,frozen")])
+    ("wds_s1_vitl16.train", "half_batch,frozen"),
+    ("c4_1b_gpt2s.train.dp4",
+     "half_batch,no_allreduce,peer_rank0_ids,peer_perturbed")])
 def test_the_control_and_faults_fail_the_committed_limits(cell, faults):
     """At the cell's own size, one seed: the sound run comes out correct,
     the control and each fault not, by the run's own comparison."""
+    import torch
+
+    chips = harness.load_cell(cell)["entry"]["chips"]
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA GPUs")
     out = subprocess.run(
         [sys.executable, "bench_port/control.py", "--workload", cell,
          "--seeds", "2147483661", "--faults", faults, "--seconds", "1"],

@@ -70,3 +70,17 @@ def test_peaks():
     assert peaks.int32_ops_per_s(132, 1980.0) == 64 * 132 * 1.98e9
     assert peaks.bound_s(0, 3.35e12, 132, 1980.0) == 1.0
     assert math.isclose(peaks.bound_s(64 * 132 * 1.98e9, 0, 132, 1980.0), 1)
+
+
+def test_link_bytes_and_peaks():
+    from bench_port.counts import link
+
+    assert link.allreduce_bytes(163_087_441) == 4 * 163_087_442
+    assert link.link_bytes(100.0, 4) == pytest.approx(150.0)
+    smi = ("GPU 0: NVIDIA H100 80GB HBM3 (UUID: GPU-1)\n"
+           + "".join(f"\t Link {i}: 26.562 GB/s\n" for i in range(18)))
+    assert link.nvlink_bytes_per_s(smi) == pytest.approx(18 * 26.562e9)
+    assert link.nvlink_bytes_per_s("GPU 0: x\n\t Link 0: <inactive>\n") \
+        is None
+    assert link.pcie_bytes_per_s(5, 16) == pytest.approx(
+        16 * 32e9 / 8 * 128 / 130)

@@ -55,7 +55,7 @@ def test_cells_resolve_by_name(name):
     entry = {w["name"]: w for w in MANIFEST["workloads"]}[name]
     assert set(entry) == {"name", "config", "traffic", "chips", "why"}
     assert NAME.match(name) and NAME.match(entry["traffic"])
-    assert entry["chips"] == 1 and _line(entry["why"])
+    assert entry["chips"] in (1, 4) and _line(entry["why"])
     cell = harness.load_cell(name)
     kind = cell["params"]["kind"]
     assert os.path.exists(os.path.join(harness.HERE, "traffic", f"{kind}.py"))
@@ -97,11 +97,16 @@ def test_files_under_paths_are_named_from_name_characters():
             assert re.match(r"^[A-Za-z0-9_./-]{1,200}$", rel), rel
 
 
-@pytest.mark.parametrize("name", [c for c in CELLS if c.endswith(".train")])
-def test_train_limits_name_numbers_the_driver_compares(name):
-    from bench_port.traffic import train_loader
+def test_at_most_a_quarter_of_the_cells_ask_for_four_cards():
+    four = [w for w in MANIFEST["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4)
 
-    limits = harness.load_cell(name)["params"]["limits"]
-    assert set(limits) <= set(train_loader.CHECKED)
+
+@pytest.mark.parametrize("name", [c for c in CELLS if ".train" in c])
+def test_train_limits_name_numbers_the_driver_compares(name):
+    cell = harness.load_cell(name)
+    limits = cell["params"]["limits"]
+    driver = harness.traffic(cell["params"]["kind"]).Driver
+    assert set(limits) <= set(driver.CHECKED)
     assert {"mismatched_ids", "row_errors"} <= set(limits)
     assert all(v >= 0 for v in limits.values())

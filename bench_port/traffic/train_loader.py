@@ -2,99 +2,38 @@
 train step, one rank of a data-parallel job.
 
 The loader serves this rank's batches (its index stream regenerated on
-the card, the rows gathered on the host and copied on a stream of its
-own); the benchmark widens each batch on the card (uint16 tokens to
-int64, or uint8 pixels to float32 in [-1, 1]) and calls the port's step
-(``make_train_step`` or ``make_vit_train_step``, AdamW).  The rows carry
-their own id, so every delivered batch is checked on the card against the
-ids the loader served; the served ids against the law's reference; the
-first three steps, which set-up runs through the same feed and step,
-against a plain float32 reference (losses, the first gradient by leaf,
-each leaf's change after the three); and one step in the steady state, a
-seed-drawn few steps after the window, which the reference follows from
-the program's own parameters and AdamW moments just before it (its loss,
-its gradient and its change by leaf).
+the card, in shard mode where the configuration has shards; the rows
+gathered on the host and copied on a stream of its own); the benchmark
+widens each batch on the card and calls the port's step (AdamW), both as
+the model's kind says (``kinds/<kind>.py``: GPT's uint16 tokens to int64
+into ``make_train_step``, ViT's uint8 pixels to float32 in [-1, 1] into
+``make_vit_train_step``).  The rows carry their own id, so every
+delivered batch is checked on the card against the ids the loader
+served; the served ids against the law's reference; the first three
+steps, which set-up runs through the same feed and step, against a plain
+float32 reference (losses, the first gradient by leaf, each leaf's change
+after the three); and one step in the steady state, a seed-drawn few
+steps after the window, which the reference follows from the program's
+own parameters and AdamW moments just before it (its loss, its gradient
+and its change by leaf).
 """
 
 from __future__ import annotations
 
 import socket
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from bench_port import stall, weights
-from bench_port.counts import model as model_counts
+from bench_port import kinds, stall, weights
 from bench_port.reference import law
 from bench_port.reference import models as ref
 from bench_port.traffic.regen_plain import draw_rank
 
-#: a token row holds its id in its first two tokens (id % ID_BASE, id //
-#: ID_BASE) and (id + j) % vocab at token j
-ID_BASE = 50_000
-#: an image row holds its id in its first four bytes (little-endian) and
-#: (PIX_STRIDE * id + j) % PIX_MOD at byte j; its label is
-#: (id * LABEL_STRIDE) % classes
-PIX_STRIDE, PIX_MOD, LABEL_STRIDE = 7, 251, 7919
-CHUNK_BYTES = 64 << 20
 #: the steady step comes 0 to STEADY_EXTRA_STEPS - 1 steps (drawn from the
 #: seed) after the window
 STEADY_EXTRA_STEPS = 4
-#: the numbers a cell may compare, each against its limit in the
-#: workload's file; a number the file gives no limit is not compared
-CHECKED = ("mismatched_ids", "row_errors", "loss_gap", "grad_gap",
-           "change_gap", "steady_loss_gap", "steady_grad_gap",
-           "steady_change_gap")
-
-
-def _fill(out: np.ndarray, tmpl: np.ndarray, key) -> None:
-    """``out[r] = tmpl[key(r):key(r) + width]`` for every row: the
-    template's windows laid out once, then taken in chunks on threads."""
-    win = np.ascontiguousarray(np.lib.stride_tricks.sliding_window_view(
-        tmpl, out.shape[1]))
-    chunk = max(1, CHUNK_BYTES // out[0].nbytes)
-
-    def part(c):
-        r = np.arange(c, min(len(out), c + chunk), dtype=np.int64)
-        np.take(win, key(r), axis=0, out=out[c:c + r.size], mode="clip")
-
-    with ThreadPoolExecutor(8) as pool:
-        list(pool.map(part, range(0, len(out), chunk)))
-
-
-def token_rows(rows: int, seq: int, vocab: int) -> np.ndarray:
-    width = seq + 1
-    tmpl = (np.arange(vocab + width, dtype=np.int64) % vocab).astype(
-        np.uint16)
-    out = np.empty((rows, width), dtype=np.uint16)
-    _fill(out, tmpl, lambda r: r % vocab)
-    ids = np.arange(rows, dtype=np.int64)
-    out[:, 0] = ids % ID_BASE
-    out[:, 1] = ids // ID_BASE
-    return out
-
-
-def image_rows(rows: int, shape: tuple) -> np.ndarray:
-    size = int(np.prod(shape))
-    tmpl = (np.arange(size + PIX_MOD, dtype=np.int64) % PIX_MOD).astype(
-        np.uint8)
-    out = np.empty((rows, size), dtype=np.uint8)
-    _fill(out, tmpl, lambda r: (PIX_STRIDE * r) % PIX_MOD)
-    out[:, :4] = np.arange(rows, dtype="<u4").view(np.uint8).reshape(rows, 4)
-    return out.reshape((rows,) + tuple(shape))
-
-
-def u16_tokens(b: torch.Tensor) -> torch.Tensor:
-    """A served uint16 batch as int64 tokens, combined from its bytes on
-    the card (uint16 tensors take few operations)."""
-    b8 = b.contiguous().view(torch.uint8).to(torch.int64)
-    return b8[..., 0::2] + 256 * b8[..., 1::2]
-
-
-def widen_pixels(x: torch.Tensor) -> torch.Tensor:
-    return x.float().mul_(2.0 / 255.0).sub_(1.0)
 
 
 def free_port() -> int:
@@ -104,10 +43,19 @@ def free_port() -> int:
 
 
 class Driver:
+    #: the numbers a cell may compare, each against its limit in the
+    #: workload's file; a number the file gives no limit is not compared
+    CHECKED = ("mismatched_ids", "row_errors", "loss_gap", "grad_gap",
+               "change_gap", "steady_loss_gap", "steady_grad_gap",
+               "steady_change_gap")
+
     def __init__(self, config: dict, params: dict, seed: int, device: str,
                  *, fault=None):
         self.model_cfg, self.opt_cfg = config["model"], config["optimizer"]
-        self.vit = self.model_cfg["kind"] == "vit"
+        self.kind = kinds.load(self.model_cfg["kind"])
+        #: the index stream is in shard mode where the configuration has
+        #: shards, whatever the model
+        self.shards = "shard_size" in config
         self.config, self.params = config, params
         self.seed, self.device = int(seed), device
         self.world, self.batch = params["world"], params["batch"]
@@ -119,17 +67,7 @@ class Driver:
 
     # ----------------------------------------------------------- set-up
     def _rows(self):
-        c = self.config
-        if self.vit:
-            m = self.model_cfg
-            n = c["host_shards"] * c["shard_size"]
-            images = image_rows(n, (m["image_size"], m["image_size"],
-                                    m["channels"]))
-            labels = ((np.arange(n, dtype=np.int64) * LABEL_STRIDE)
-                      % m["num_classes"]).astype(np.int32)
-            return {"x": images, "y": labels}
-        return token_rows(c["host_rows"], self.model_cfg["seq_len"],
-                          self.model_cfg["vocab_size"])
+        return self.kind.host_rows(self.config)
 
     def _group(self):
         import torch.distributed as dist
@@ -145,40 +83,26 @@ class Driver:
         return parallel.data_mesh(device=self.device)
 
     def _program(self, mesh, w0: dict):
-        from partiallyshuffledistributedsampler_tpu_torch.models import (
-            gpt,
-            train,
-            vit,
-        )
+        from partiallyshuffledistributedsampler_tpu_torch.models import train
 
-        m = self.model_cfg
-        widths = {k: m[k] for k in m if k not in ("kind", "dtype")}
-        dtype = getattr(torch, m["dtype"])
-        with torch.device(self.device):
-            if self.vit:
-                cfg = vit.ViTConfig(dtype=dtype, **widths)
-                model = vit.MiniViT(cfg)
-            else:
-                cfg = gpt.GPTConfig(dtype=dtype, **widths)
-                model = gpt.MiniGPT(cfg)
+        model, make_step = self.kind.program(self.model_cfg, self.device)
         model.load_state_dict(w0)
         opt = train.make_optimizer(model)
         batch = self.batch // 2 if self.fault == "half_batch" else self.batch
-        make = vit.make_vit_train_step if self.vit else train.make_train_step
         if self.fault == "frozen":
             opt.step = lambda *a, **k: None  # the state comes back unchanged
-        return model, opt, make(cfg, opt, mesh, batch), batch
+        return model, opt, make_step(opt, mesh, batch), batch
 
-    def _loader(self, data):
+    def _loader(self, data, rank: int):
         from partiallyshuffledistributedsampler_tpu_torch import HostDataLoader
 
         c, p = self.config, self.params
         kw = dict(window=c["window"], batch=self.batch, seed=self.seed,
-                  rank=self.rank, world=self.world, depth=p["depth"],
+                  rank=rank, world=self.world, depth=p["depth"],
                   boundary_prefetch=p["boundary_prefetch"],
                   index_backend="cuda" if self.device != "cpu" else "cpu",
                   device=self.device)
-        if self.vit:
+        if self.shards:
             kw["shard_sizes"] = [c["shard_size"]] * c["host_shards"]
             kw["within_shard_shuffle"] = c["within_shard_shuffle"]
         return HostDataLoader(data, **kw)
@@ -201,25 +125,29 @@ class Driver:
         self.setup_phases.append((name, round(now - self._t, 3)))
         self._t = now
 
+    def _prepare(self, mesh, loader_rank: int) -> dict:
+        """Everything before the first step: the weights from the seed, the
+        program, the loader over this rank's stream and the feed; returns
+        the weights."""
+        w0 = weights.make(self.model_cfg, self.seed, self.device)
+        self._phase("weights")
+        self.model, self.opt, self.step, self.fed = self._program(mesh, w0)
+        self._phase("model and step")
+        self.loader = self._loader(self.rows, loader_rank)
+        self._phase("loader")
+        self.in_order = torch.arange(self.fed, device=self.device)
+        self.errors = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.check_rows = self.kind.row_check(self.config, self.device)
+        self.feed = self._feed()
+        return w0
+
     def setup(self):
         self.setup_phases, self._t = [], time.perf_counter()
         self.rows = self._rows()
         self._phase("host rows")
         mesh = self._group()
         self._phase("process group")
-        w0 = weights.make(self.model_cfg, self.seed, self.device)
-        self._phase("weights")
-        self.model, self.opt, self.step, self.fed = self._program(mesh, w0)
-        self._phase("model and step")
-        self.loader = self._loader(self.rows)
-        self._phase("loader")
-        self.in_order = torch.arange(self.fed, device=self.device)
-        self.errors = torch.zeros((), dtype=torch.int64, device=self.device)
-        if self.vit:
-            size = int(np.prod(self.rows["x"].shape[1:]))
-            self.byte_pos = torch.arange(size, dtype=torch.int32,
-                                         device=self.device)
-        self.feed = self._feed()
+        w0 = self._prepare(mesh, self.rank)
         named = dict(self.model.named_parameters())
         b1 = self.opt_cfg["betas"][0]
         for s in range(self.params["setup_steps"]):
@@ -243,37 +171,17 @@ class Driver:
             torch.cuda.synchronize()
 
     # ------------------------------------------------------------- steps
-    def _row_errors(self, b, want):
-        """Rows of a delivered batch that break their pattern or hold
-        another id than the loader's stream says (a device scalar)."""
-        if self.vit:
-            x, y = b["x"], b["y"]
-            flat = x.reshape(x.shape[0], -1)
-            w = flat[:, :4].to(torch.int64)
-            rid = w[:, 0] + (w[:, 1] << 8) + (w[:, 2] << 16) + (w[:, 3] << 24)
-            pix = (PIX_STRIDE * rid.to(torch.int32))[:, None] + self.byte_pos
-            return ((rid != want).sum() + (y.long() != (
-                rid * LABEL_STRIDE) % self.model_cfg["num_classes"]).sum()
-                + (flat[:, 4:] != (pix[:, 4:] % PIX_MOD)).sum())
-        rid = b[:, 0] + ID_BASE * b[:, 1]
-        j = torch.arange(b.shape[1], device=b.device)
-        pat = (rid[:, None] + j) % self.model_cfg["vocab_size"]
-        return (rid != want).sum() + (b[:, 2:] != pat[:, 2:]).sum()
-
     def _consume(self, item):
+        """One step on a served batch: widened on the card, its rows
+        checked against the ids the loader's stream says it holds, then
+        the port's step on its first ``fed`` rows."""
         b, want, _ = item
-        if self.vit:
-            if self.fault == "altered_row":
-                b["x"][0, 0, 1, 2] += 1
-            self.errors += self._row_errors(b, want)
-            x, y = widen_pixels(b["x"][:self.fed]), b["y"][:self.fed]
-            loss = self.step(self.model, x, y, self.in_order, 0)
-        else:
-            tokens = u16_tokens(b)
-            if self.fault == "altered_row":
-                tokens[0, 5] += 1
-            self.errors += self._row_errors(tokens, want)
-            loss = self.step(self.model, tokens[:self.fed], self.in_order, 0)
+        served = self.kind.widen(b)
+        if self.fault == "altered_row":
+            self.kind.alter(served)
+        self.errors += self.check_rows(served, want)
+        loss = self.step(self.model, *self.kind.step_inputs(served, self.fed),
+                         self.in_order, 0)
         self.losses.append(loss)
 
     def window(self, seconds: float) -> dict:
@@ -305,7 +213,7 @@ class Driver:
         return self.params["traced_steps"]
 
     def counts(self) -> dict:
-        return {"train_step_flops": model_counts.train_step_flops(
+        return {"train_step_flops": self.kind.train_step_flops(
             self.model_cfg, self.batch)}
 
     def _steady_step(self):
@@ -336,6 +244,9 @@ class Driver:
 
     def release(self):
         self._steady_step()
+        self._free()
+
+    def _free(self):
         self.feed.close()
         self.loader.close()
         self.step_losses = torch.stack(self.losses).float().cpu()
@@ -350,26 +261,37 @@ class Driver:
             torch.cuda.empty_cache()
 
     # ------------------------------------------------------- correctness
-    def _reference_ids(self, epoch: int) -> np.ndarray:
+    def _reference_ids(self, epoch: int, rank=None,
+                       device: str = "cpu") -> np.ndarray:
+        """The law's ids of ``rank`` (this driver's by default) in
+        ``epoch``, worked out on ``device``: shard mode where the
+        configuration has shards."""
         c = self.config
-        if self.vit:
+        rank = self.rank if rank is None else rank
+        if self.shards:
             sids = law.epoch_indices(c["host_shards"], c["window"], self.seed,
-                                     epoch, self.rank, self.world)
+                                     epoch, rank, self.world, device=device)
             sizes = torch.full((c["host_shards"],), c["shard_size"],
-                               dtype=torch.int64)
+                               dtype=torch.int64, device=device)
             return law.expand_shards(
                 sids, sizes, self.seed, epoch,
-                within_shard_shuffle=c["within_shard_shuffle"]).numpy()
+                within_shard_shuffle=c["within_shard_shuffle"]).cpu().numpy()
         return law.epoch_indices(c["host_rows"], c["window"], self.seed,
-                                 epoch, self.rank, self.world).numpy()
+                                 epoch, rank, self.world,
+                                 device=device).cpu().numpy()
 
-    def _reference_batch(self, ids: np.ndarray) -> dict:
-        if self.vit:
-            x = torch.from_numpy(self.rows["x"][ids]).to(self.device)
-            y = torch.from_numpy(self.rows["y"][ids]).to(self.device)
-            return {"images": widen_pixels(x), "labels": y}
-        tok = torch.from_numpy(self.rows[ids].astype(np.int64))
-        return {"tokens": tok.to(self.device)}
+    def _id_errors(self, want_ids: dict) -> int:
+        """Served ids that differ from the law's (every id of an epoch
+        served at another length)."""
+        return sum(int((np.asarray(got, np.int64) != want_ids[e]).sum())
+                   if len(got) == len(want_ids[e]) else len(want_ids[e])
+                   for e, got in self.served.items())
+
+    def _step_batch(self, want_ids: dict, e: int, s: int):
+        """The reference's batch of step ``s`` of epoch ``e``: the rows of
+        the law's ids."""
+        ids = want_ids[e][s * self.batch:(s + 1) * self.batch]
+        return self.kind.reference_batch(self.rows, ids, self.device)
 
     @staticmethod
     def _gaps(losses, grads, change, want, prefix="") -> dict:
@@ -395,12 +317,9 @@ class Driver:
         before it (``_gaps``).  ``fp8`` puts the reference in float8 in
         the program's place: the control."""
         want_ids = {e: self._reference_ids(e) for e in self.served}
-        bad_ids = sum(int((np.asarray(got, np.int64) != want_ids[e]).sum())
-                      if len(got) == len(want_ids[e]) else len(want_ids[e])
-                      for e, got in self.served.items())
-        out = dict(mismatched_ids=bad_ids, row_errors=self.error_count)
-        first = [self._reference_batch(i) for i in
-                 want_ids[0][:3 * self.batch].reshape(3, self.batch)]
+        out = dict(mismatched_ids=self._id_errors(want_ids),
+                   row_errors=self.error_count)
+        first = [self._step_batch(want_ids, 0, s) for s in range(3)]
         w0 = weights.make(self.model_cfg, self.seed, self.device)
         want = ref.run_steps(w0, self.model_cfg, self.opt_cfg, first)
         if fp8:
@@ -414,8 +333,7 @@ class Driver:
         del w0, first
         st = self.steady
         e, s = st["place"]
-        batch = [self._reference_batch(
-            want_ids[e][s * self.batch:(s + 1) * self.batch])]
+        batch = [self._step_batch(want_ids, e, s)]
         want = ref.run_steps(st["before"], self.model_cfg, self.opt_cfg,
                              batch, moments=st["moments"])
         loss = st["loss"]
@@ -436,6 +354,6 @@ class Driver:
         ``fp8``, the control's."""
         r = self.last_readings = self.readings(fp8)
         limits = self.params["limits"]
-        out = [(k, r[k], limits[k]) for k in CHECKED if k in limits]
+        out = [(k, r[k], limits[k]) for k in self.CHECKED if k in limits]
         self.failed = sum(v > lim for _, v, lim in out)
         return out

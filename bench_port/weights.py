@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from bench_port import kinds
+
 
 def _block_leaves(prefix: str, d: int, f: int) -> list:
     leaves = []
@@ -22,28 +24,24 @@ def _block_leaves(prefix: str, d: int, f: int) -> list:
     return leaves
 
 
-def leaves(model: dict) -> list:
-    """``(name, shape, init)`` of every leaf: ``init`` is a fan-in (a
-    normal of variance 1/fan_in), "one" or "zero"."""
+def transformer_leaves(model: dict, embed: list, classes: int) -> list:
+    """A pre-LN transformer's leaves: ``embed`` (the kind's own input
+    leaves), the blocks, the final norm and a head of ``classes``."""
     d, f = model["d_model"], model["d_ff"]
-    if model["kind"] == "vit":
-        p, c = model["patch_size"], model["channels"]
-        patches = (model["image_size"] // p) ** 2
-        out = [("patch.weight", (d, c, p, p), c * p * p),
-               ("patch.bias", (d,), "zero"),
-               ("cls", (1, 1, d), "zero"),
-               ("wpe.weight", (patches + 1, d), d)]
-        classes = model["num_classes"]
-    else:
-        out = [("wte.weight", (model["vocab_size"], d), d),
-               ("wpe.weight", (model["seq_len"], d), d)]
-        classes = model["vocab_size"]
+    out = list(embed)
     for i in range(model["n_layers"]):
         out += _block_leaves(f"block{i}.", d, f)
     out += [("lnf.weight", (d,), "one"), ("lnf.bias", (d,), "zero"),
             ("head.weight", (classes, d), d), ("head.bias", (classes,),
                                                "zero")]
     return out
+
+
+def leaves(model: dict) -> list:
+    """``(name, shape, init)`` of every leaf, by the model's kind
+    (``kinds/<kind>.py``): ``init`` is a fan-in (a normal of variance
+    1/fan_in), "one" or "zero"."""
+    return kinds.load(model["kind"]).leaves(model)
 
 
 def make(model: dict, seed: int, device) -> dict:
