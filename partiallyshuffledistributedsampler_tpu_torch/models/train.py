@@ -49,6 +49,7 @@ from ..parallel.sharded import (
 )
 from ..sampler.device_iterator import batch_index_window
 from ..telemetry import span as _span
+from .deepseek_v2 import DeepSeekV2Config
 from .gpt import GPTConfig, forward, init_params
 
 #: optax.adamw(3e-4)'s hyperparameters (torch's default weight decay is
@@ -91,7 +92,7 @@ def lm_loss(cfg: GPTConfig, model, batch: torch.Tensor) -> torch.Tensor:
 
 def make_step(opt: torch.optim.Optimizer, mesh: DeviceMesh, batch_per_dp: int,
               loss_of):
-    """The step shared by the GPT and ViT consumers:
+    """The step shared by the GPT, ViT and DeepSeek-V2 consumers:
     ``step(model, epoch_idx, step, *tables) -> loss``.  ``loss_of(model,
     idx, *tables)`` gathers the rows of ``idx`` from ``tables`` and returns
     the rank's mean loss."""
@@ -140,6 +141,40 @@ def make_train_step(cfg: GPTConfig, opt: torch.optim.Optimizer,
 
     def loss_of(model, win, tokens):
         return lm_loss(cfg, model, tokens.index_select(0, win))
+
+    step_fn = make_step(opt, mesh, batch_per_dp, loss_of)
+
+    def train_step(model, tokens, epoch_idx, step):
+        return step_fn(model, epoch_idx, step, tokens)
+
+    return train_step
+
+
+def make_deepseek_train_step(cfg: DeepSeekV2Config, opt: torch.optim.Optimizer,
+                             mesh: DeviceMesh, batch_per_dp: int):
+    """``make_train_step``'s counterpart for ``deepseek_v2.DeepSeekV2``:
+    ``step(model, tokens, epoch_idx, step) -> loss``, the loss the
+    next-token ``mean_nll`` plus the MoE layers' balance loss.
+
+    One rank only: a mesh of world > 1 raises ``ValueError``.  Under
+    expert parallelism the ranks hold different experts, and this step has
+    neither the all-to-all that brings other ranks' tokens to a rank's
+    experts nor a split of the expert gradients from the replicated ones:
+    ``make_step``'s one all-reduce would average each rank's held experts
+    with other ranks' different ones."""
+    world, _ = identity_from_mesh(mesh, mesh_axis(mesh))
+    if world > 1:
+        raise ValueError(
+            f"make_deepseek_train_step runs one rank, got a mesh of world "
+            f"{world}: it has no expert all-to-all, and its all-reduce would "
+            "average different ranks' held experts")
+
+    def loss_of(model, win, tokens):
+        if model.cfg != cfg:
+            raise ValueError(f"model was built for {model.cfg}, not {cfg}")
+        batch = tokens.index_select(0, win)
+        logits, aux = model(batch[:, :-1])
+        return mean_nll(logits, batch[:, 1:]) + aux
 
     step_fn = make_step(opt, mesh, batch_per_dp, loss_of)
 

@@ -1,0 +1,185 @@
+"""The port's DeepSeek-V2 on the card (marker ``cuda``; skips on a machine
+without an NVIDIA GPU: the grouped GEMM and SDPA's fused kernels run there
+only).  A step of ``make_deepseek_train_step`` runs under
+``torch.cuda.set_sync_debug_mode("error")`` (the routed path finds its
+offsets on the card) and drops no (token, slot) pair.  The card's forward
+and backward, at the published widths that set the kernels' shapes, are
+held against the plain float32 reference of the benchmark
+(``bench_port/reference/deepseek_v2.py``, which shares no code with the
+port: its own rope, router, experts and attention) on the host, on the
+port's initial weights: in float32 with TF32 off, and in bfloat16 as the
+cells run.
+
+Tolerances, from readings on an H100 (4 weight and token seeds, 512
+tokens, the gradient of a leaf as ``|g - g_ref|`` over the larger of
+``|g_ref|`` and the median leaf's norm, as the benchmark's ``leaf_gap``):
+
+- float32: the loss read 6.4e-8 to 1.3e-7 of the reference's, each leaf's
+  gradient 7.2e-6 to 7.3e-6, the routes equal.  Limits 1e-6 and 1e-4, with
+  equal routes: above the sound readings by 7x and 14x, and below the
+  bfloat16 run's least readings (5.2e-6 and 0.039) by 5x and 390x.
+- bfloat16: the gradient read 0.0386 to 0.0395, the routes 0.59 % to
+  1.07 % apart, the loss 5.2e-6 to 3.0e-4.  The reference itself with
+  every projection in float8 e4m3 (the benchmark's control) reads 0.404 to
+  0.409, 7.3 % to 8.8 % and 5.7e-4 to 1.4e-3.  Limits 0.1 and 3 %: 2.5x
+  and 2.8x above bfloat16's largest, 4x and 2.4x below float8's least.
+  The loss, within 1e-3 (3x bfloat16's largest), does not tell the two
+  precisions apart; the gradient and the routes do.
+
+Run on a GPU machine with
+``python -m pytest -m cuda tests/test_torch_port_gpu_deepseek_v2.py``.
+"""
+
+import socket
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from bench_port.reference import deepseek_v2 as ref
+from partiallyshuffledistributedsampler_tpu_torch import parallel
+from partiallyshuffledistributedsampler_tpu_torch.models import (
+    DeepSeekV2,
+    DeepSeekV2Config,
+    init_deepseek_params,
+    make_deepseek_train_step,
+    moe_counters,
+)
+from partiallyshuffledistributedsampler_tpu_torch.models.train import (
+    make_optimizer,
+    mean_nll,
+)
+
+pytestmark = pytest.mark.cuda
+
+#: the published widths that decide the kernels' shapes (MLA's 192/128
+#: head sizes, the expert width), at 2 layers, 16 experts and 512 tokens
+CARD = dict(vocab_size=1024, seq_len=512, hidden_size=2048,
+            num_hidden_layers=2, num_attention_heads=16, kv_lora_rank=512,
+            qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+            intermediate_size=10944, moe_intermediate_size=1408,
+            n_routed_experts=16, num_experts_per_tok=6, n_shared_experts=2,
+            first_k_dense_replace=1, first_held_expert=4, experts_held=8)
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the grouped GEMM runs on the card)")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield parallel.data_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _model(dtype, device):
+    cfg = DeepSeekV2Config(**CARD, dtype=dtype)
+    return cfg, init_deepseek_params(
+        cfg, torch.Generator().manual_seed(3)).to(device)
+
+
+def test_a_step_runs_with_no_host_sync_and_drops_nothing(mesh):
+    cfg, model = _model(torch.bfloat16, "cuda")
+    step = make_deepseek_train_step(cfg, make_optimizer(model), mesh, 2)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    tok = torch.randint(0, cfg.vocab_size, (4, cfg.seq_len + 1),
+                        generator=g, device="cuda")
+    idx = torch.arange(4, device="cuda")
+    step(model, tok, idx, 0)  # warm-up: first calls may load libraries
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step(model, tok, idx, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(loss)
+    counted = moe_counters(model)
+    assert counted["tokens_dropped"] == 0
+    assert sum(map(sum, counted["expert_tokens"])) > 0
+
+
+def _reference(seed: int) -> tuple:
+    """The port's initial float32 weights of ``seed`` on the host, a
+    sequence of tokens, and the reference's loss, gradient by leaf and
+    top-k routes by MoE layer on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the grouped GEMM runs on the card)")
+    cfg = DeepSeekV2Config(**CARD, dtype=torch.float32)
+    host = init_deepseek_params(cfg, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 2)
+    tok = torch.randint(0, cfg.vocab_size, (1, cfg.seq_len + 1), generator=g)
+    m = dict(CARD, rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
+             aux_loss_alpha=cfg.aux_loss_alpha, rope_scaling=dict(
+                 type="yarn", factor=cfg.rope_factor,
+                 original_max_position_embeddings=(
+                     cfg.original_max_position_embeddings),
+                 beta_fast=cfg.beta_fast, beta_slow=cfg.beta_slow,
+                 mscale=cfg.mscale, mscale_all_dim=cfg.mscale_all_dim))
+    w = {k: v.detach().clone().requires_grad_(True)
+         for k, v in host.state_dict().items()}
+    routes = {}
+    loss = ref.loss(w, m, {"tokens": tok, "routes": routes})
+    grads = dict(zip(w, torch.autograd.grad(loss, list(w.values()))))
+    return (host, tok, float(loss.detach()), grads,
+            [routes[i] for i in sorted(routes)])
+
+
+def _on_the_card(host, tok, dtype) -> tuple:
+    """The port's loss, gradient by leaf (on the host) and routes, from
+    ``host``'s weights in ``dtype`` on the card."""
+    model = DeepSeekV2(DeepSeekV2Config(**CARD, dtype=dtype)).cuda()
+    model.load_state_dict(host.state_dict())
+    t = tok.cuda()
+    logits, aux = model(t[:, :-1])
+    loss = mean_nll(logits, t[:, 1:]) + aux
+    loss.backward()
+    return (float(loss.detach()), {k: p.grad.float().cpu()
+                          for k, p in model.named_parameters()},
+            [m.last_routes.cpu() for m in model.moe_layers()])
+
+
+def _grad_gap(got: dict, want: dict) -> float:
+    """The worst leaf's ``|g - g_ref|`` over the larger of ``|g_ref|`` and
+    the median leaf's norm."""
+    norms = {k: float(g.norm()) for k, g in want.items()}
+    med = float(torch.tensor(list(norms.values())).median())
+    return max(float((got[k] - g).norm()) / max(norms[k], med)
+               for k, g in want.items())
+
+
+def _route_miss(got: list, want: list) -> float:
+    miss = sum(int((~(g[:, :, None] == w[:, None, :]).any(-1)).sum())
+               for g, w in zip(got, want))
+    return miss / sum(w.numel() for w in want)
+
+
+@pytest.fixture
+def no_tf32():
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+def test_f32_on_the_card_matches_the_reference(no_tf32):
+    host, tok, want_loss, want, want_routes = _reference(3)
+    loss, grads, routes = _on_the_card(host, tok, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(routes, want_routes))
+    assert abs(loss - want_loss) <= 1e-6 * want_loss
+    assert _grad_gap(grads, want) <= 1e-4
+
+
+def test_bf16_on_the_card_is_near_f32_on_the_host():
+    host, tok, want_loss, want, want_routes = _reference(4)
+    loss, grads, routes = _on_the_card(host, tok, torch.bfloat16)
+    assert _route_miss(routes, want_routes) <= 0.03
+    assert abs(loss - want_loss) <= 1e-3 * want_loss
+    assert _grad_gap(grads, want) <= 0.1
