@@ -6,8 +6,9 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``csrc/index_kernels.cu``,
-``csrc/mixture_kernels.cu``, ``csrc/shard_kernels.cu`` and
-``csrc/sampling_kernels.cu`` (one nvcc each, run together), checks the
+``csrc/mixture_kernels.cu``, ``csrc/shard_kernels.cu``,
+``csrc/sampling_kernels.cu`` and ``csrc/moe_kernels.cu`` (one nvcc each,
+run together), checks the
 frozen goldens on the card, holds each kernel
 bit-exact against its plain PyTorch version at the shapes of the main
 paths, drives each main path
@@ -208,6 +209,17 @@ plain version and its bound.  Every failure exits non-zero.
   version and beside the masked torch loop it replaced, also on a 10B
   mixture (6e9/2.5e9/1.5e9) whose web source passes 2^32, and beside
   ``mixture_fused`` on M1, M2 and M3.
+
+* The DeepSeek-V2 routed path's kernels (``moe_phase``,
+  ``csrc/moe_kernels.cu``): the gather, SwiGLU and combine around the held
+  experts' grouped GEMMs and their backwards, at one MoE layer of
+  ``m1_dsv2lite`` (8,192 tokens, top 6 of 64 experts, 8 held, d 2,048,
+  expert width 1,408, bf16), each against its plain version with every
+  input row at or past the buffer's last offset NaN and no host
+  synchronisation, timed beside its plain version and its byte bound over
+  the filled rows; then one train step of the whole 27-layer model with
+  the launch counters reset just before it.  The phase alone:
+  ``python3 chip_smoke.py --moe``.
 
 ``python3 chip_smoke.py --regen`` prints only the per-epoch regen times,
 the ``shard_row_keys`` and ``shard_expand`` times, the elastic remainder
@@ -3839,6 +3851,218 @@ def sharding_phase(card: str) -> tuple:
     return launches21, errs
 
 
+#: the MoE phase (``moe_phase``): one MoE layer of DeepSeek-V2-Lite as
+#: ``bench_port/configs/m1_dsv2lite.json`` runs it, 2 x 4,096 tokens, top
+#: 6 of 64 routed experts, 8 held, d 2,048, expert width 1,408, bf16
+MOE_TOKENS, MOE_TOP, MOE_EXPERTS, MOE_HELD = 8192, 6, 64, 8
+MOE_D, MOE_F = 2048, 1408
+#: the kernels of the DeepSeek-V2 routed path (``csrc/moe_kernels.cu``)
+MOE_KERNELS = ("moe_gather", "moe_gather_backward", "moe_swiglu",
+               "moe_swiglu_backward", "moe_combine", "moe_combine_backward")
+
+
+def moe_phase(card: str, max_sm_mhz: float) -> list:
+    """The six ``moe_*`` kernels at one ``m1_dsv2lite`` MoE layer's shapes
+    on softmax top-6 routes of random scores: each against its plain
+    version on the card (every row of an input buffer at or past
+    ``ends[-1]`` NaN, under ``set_sync_debug_mode("error")``), timed beside
+    it and beside its byte bound over the rows that hold a pair; then one
+    train step of the whole model (all 27 layers, 8 experts held, 12,800
+    vocabulary rows) under ``set_sync_debug_mode("error")``, with the
+    launch counters reset just before it.  Returns the rows of the
+    ``kernels`` line."""
+    import torch
+
+    from partiallyshuffledistributedsampler_tpu_torch import parallel
+    from partiallyshuffledistributedsampler_tpu_torch.models import (
+        DeepSeekV2,
+        DeepSeekV2Config,
+        deepseek_v2 as D,
+        make_deepseek_train_step,
+        moe_counters,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.models.gpt import (
+        init_module_,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.models.train import (
+        make_optimizer,
+    )
+    from partiallyshuffledistributedsampler_tpu_torch.ops import (
+        cuda_kernel as ck,
+    )
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    n, k, d, f = MOE_TOKENS, MOE_TOP, MOE_D, MOE_F
+    g = torch.Generator(device=dev).manual_seed(23)
+    scores = torch.randn(n, MOE_EXPERTS, device=dev, generator=g)
+    w, idx = scores.softmax(-1).topk(k, dim=-1)
+    w = w.contiguous()
+    plan = D.route_plan(idx, 0, MOE_HELD)
+    row, ends, counts, rows = (plan["row"], plan["ends"], plan["counts"],
+                               plan["rows"])
+    pairs, end = int(counts.sum()), int(ends[-1])
+    held_tokens = int((row.view(n, k) >= 0).any(1).sum())
+    print(f"moe: {n} tokens, top {k} of {MOE_EXPERTS}, {MOE_HELD} held: "
+          f"{pairs} pairs, {end} of {rows} rows below ends[-1], "
+          f"{held_tokens} tokens with a held slot | {card}")
+
+    def buffer(width):
+        t = torch.randn(rows, width, device=dev, generator=g).to(bf16)
+        t[end:] = float("nan")
+        return t
+
+    x = torch.randn(n, d, device=dev, generator=g).to(bf16)
+    drows, gu, dh, y = buffer(d), buffer(2 * f), buffer(f), buffer(d)
+    dout = torch.randn(n, d, device=dev, generator=g)
+    # each kernel's wrapper, its plain version and its arguments
+    calls = {
+        "moe_gather": (ck.moe_gather, ck.moe_gather_ref,
+                       (x, row, ends, counts, rows)),
+        "moe_gather_backward": (ck.moe_gather_backward,
+                                ck.moe_gather_backward_ref, (drows, row, n)),
+        "moe_swiglu": (ck.moe_swiglu, ck.moe_swiglu_ref, (gu, ends, counts)),
+        "moe_swiglu_backward": (ck.moe_swiglu_backward,
+                                ck.moe_swiglu_backward_ref,
+                                (gu, dh, ends, counts)),
+        "moe_combine": (ck.moe_combine, ck.moe_combine_ref, (y, w, row)),
+        "moe_combine_backward": (ck.moe_combine_backward,
+                                 ck.moe_combine_backward_ref,
+                                 (dout, y, w, row, ends, counts)),
+    }
+    # bytes over the filled rows: each input row that a pair (or a token
+    # with a held slot) names read once, row and w once a slot, every
+    # output row below ends[-1] (padding included) written once
+    s = 2
+    nbytes = {
+        "moe_gather": held_tokens * d * s + end * d * s + n * k * 4,
+        "moe_gather_backward": pairs * d * s + n * k * 4 + n * d * s,
+        "moe_swiglu": pairs * 2 * f * s + end * f * s,
+        "moe_swiglu_backward": pairs * 3 * f * s + end * 2 * f * s,
+        "moe_combine": pairs * d * s + n * k * 8 + n * d * 4,
+        "moe_combine_backward": (held_tokens * d * 4 + pairs * d * s
+                                 + n * k * 8 + end * d * s + n * k * 4),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = {name: kern(*args) for name, (kern, _, args) in calls.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    def host(t):
+        return t.cpu() if torch.is_tensor(t) else t
+
+    # held against the plain versions on the host, whose float32 sums run
+    # in slot order as the kernels' do; the buffer's rows below ends[-1],
+    # dx and the combine's output per token
+    below = {"moe_gather", "moe_swiglu", "moe_swiglu_backward"}
+    tol = {"moe_swiglu": dict(rtol=2 ** -7, atol=0),
+           "moe_swiglu_backward": dict(rtol=2 ** -7, atol=0)}
+    errs = {}
+    hrow = row.cpu()
+    for name, (_, plain, args) in calls.items():
+        a, b = host(got[name]), plain(*map(host, args))
+        if name == "moe_combine_backward":
+            (a, dw), (b, want_dw) = (tuple(map(host, a)), b)
+            check(not dw[hrow.view(n, k) < 0].any(),
+                  "moe_combine_backward: dw of a slot held elsewhere not 0")
+            torch.testing.assert_close(dw, want_dw, rtol=1e-5, atol=1e-4)
+            a, b = a[:end], b[:end]
+        elif name in below:
+            a, b = a[:end], b[:end]
+        check(bool(torch.isfinite(a).all()),
+              f"{name}: a NaN past ends[-1] reached the output")
+        if name in tol:
+            torch.testing.assert_close(a, b, **tol[name])
+        else:
+            check(torch.equal(a, b), f"{name}: not bit-exact against "
+                  f"{name}_ref")
+        diff = (a.float() - b.float()).abs()
+        errs[name] = float(diff.max()) if diff.numel() else 0.0
+    timed = {}
+    for name, (kern, plain, args) in calls.items():
+        ms = device_ms(lambda: kern(*args), 50, max_sm_mhz)
+        plain_ms = device_ms(lambda: plain(*args), 5, max_sm_mhz)
+        bound_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        timed[name] = (ms, plain_ms, bound_ms)
+        print(f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes, {nbytes[name] / 1e6:.1f} MB), "
+              f"{100 * bound_ms / ms:.1f} % of it, max_abs_err "
+              f"{errs[name]:.3g} | {card}")
+    del x, drows, gu, dh, y, dout, got, calls
+    torch.cuda.empty_cache()
+
+    # one train step of the whole model, as m1_dsv2lite.train runs it
+    cfg = DeepSeekV2Config(
+        vocab_size=12800, seq_len=4096, hidden_size=d, num_hidden_layers=27,
+        num_attention_heads=16, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, intermediate_size=10944,
+        moe_intermediate_size=f, n_routed_experts=MOE_EXPERTS,
+        num_experts_per_tok=k, n_shared_experts=2, first_k_dense_replace=1,
+        first_held_expert=0, experts_held=MOE_HELD, dtype=bf16)
+    with torch.device(dev):
+        model = DeepSeekV2(cfg)
+    init_module_(model, torch.Generator(device=dev).manual_seed(29))
+    dist = torch.distributed
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        step = make_deepseek_train_step(
+            cfg, make_optimizer(model), parallel.data_mesh(device="cuda"), 2)
+        tok = torch.randint(0, cfg.vocab_size, (4, cfg.seq_len + 1),
+                            device=dev, generator=g)
+        win = torch.arange(4, device=dev)
+        step(model, tok, win, 0)  # warm-up
+        torch.cuda.synchronize()
+        layers = len(model.moe_layers())
+        D.reset_moe_counters(model)
+        ck.reset_launches()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a.record()
+            loss = step(model, tok, win, 1)
+            b.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        b.synchronize()
+        launches = {name: ck.launches[name] for name in MOE_KERNELS}
+        read = moe_counters(model)
+    finally:
+        dist.destroy_process_group()
+    step_pairs = sum(map(sum, read["expert_tokens"]))
+    print(f"moe: one m1_dsv2lite train step, {layers} MoE layers: "
+          f"{a.elapsed_time(b):.2f} ms, loss {float(loss):.4f}, "
+          f"{step_pairs} pairs, rows_filled "
+          f"{sum(read['rows_filled']) / (layers * rows):.4f} of the "
+          f"buffers, dropped {read['tokens_dropped']}, launches {launches}, "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}")
+    check(read["tokens_dropped"] == 0, "moe: the step dropped a pair")
+    # forward and the checkpoint's recompute, then the backward once
+    for name in MOE_KERNELS:
+        want = layers * (1 if name.endswith("_backward") else 2)
+        check(launches[name] == want, f"moe: {name} launched "
+              f"{launches[name]} times in one step, not {want}")
+    del model, step
+    torch.cuda.empty_cache()
+    out = []
+    for name in MOE_KERNELS:
+        ms, plain_ms, bound_ms = timed[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "partiallyshuffledistributedsampler_tpu_torch/csrc/"
+                      "moe_kernels.cu",
+            "replaces": "none: PyTorch ops over the whole routed buffer of "
+                        "partiallyshuffledistributedsampler_tpu_torch/models/"
+                        "deepseek_v2.py (the JAX package has no MoE)",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+        })
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3908,6 +4132,23 @@ def main() -> None:
                   f"kernel {name} of the slice-13 main path: launches "
                   f"{launches.get(name, 0)}, max_abs_err {errs.get(name)}")
         print(json.dumps({"launches": launches, "errors": errs}))
+        return
+    if sys.argv[1:2] == ["--moe"]:
+        from partiallyshuffledistributedsampler_tpu_torch.ops import (
+            cuda_kernel as ck,
+        )
+
+        card = nvidia_smi("name,power.limit")
+        print(card)
+        t0 = time.perf_counter()
+        ck.build()
+        print(f"build: {time.perf_counter() - t0:.2f} s")
+        kernels = moe_phase(card,
+                            float(nvidia_smi("clocks.max.sm").split()[0]))
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return
     if sys.argv[1:2] == ["--sampling"]:
         card = nvidia_smi("name,power.limit")
@@ -5816,6 +6057,8 @@ def main() -> None:
             "max_abs_err": stats[name]["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
+    torch.cuda.empty_cache()
+    kernels += moe_phase(card, max_sm_mhz)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

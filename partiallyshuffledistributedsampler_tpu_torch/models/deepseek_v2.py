@@ -35,16 +35,25 @@ pairs are sorted by held expert and each expert's rows are padded to a
 multiple of ``ALIGN`` in one buffer, with the offsets found on the card
 (``route_plan``); the held experts' products are one grouped GEMM each way
 (``torch._grouped_mm`` with device-side offsets); a weighted float32
-combine adds each pair's output to its token.  Rows of the buffer past the
-last offset are never written by the grouped GEMM, so every use masks
-them with ``torch.where`` (a multiply by zero would keep a NaN).  The
-buffer is sized for the worst case, every slot of every token on a held
-expert, so (``RECOMPUTE_EXPERTS``) the gather, the grouped GEMMs and
-the combine run under ``torch.utils.checkpoint``: the backward
-recomputes them from the layer's input and keeps none of the buffer's
-rows, as MoE trainings recompute their expert MLPs.  The held experts'
-products then run three times a step: forward, again in the backward,
-and the backward's own.
+combine adds each pair's output to its token.  The buffer is sized for the
+worst case, every slot of every token on a held expert, and no host reads
+how much of it is filled, so (``RECOMPUTE_EXPERTS``) the gather, the
+grouped GEMMs and the combine run under ``torch.utils.checkpoint``: the
+backward recomputes them from the layer's input and keeps none of the
+buffer's rows, as MoE trainings recompute their expert MLPs.  The held
+experts' products then run three times a step: forward, again in the
+backward, and the backward's own.
+
+The work around the two GEMMs is six kernels (``ops/cuda_kernel.py``
+``moe_*``, ``csrc/moe_kernels.cu``) in three autograd Functions, the
+gather, the SwiGLU and the combine, each with its backward: they read the
+offsets and the counts on the card and touch only the rows that hold a
+pair.  Each group's padding rows get exact zeros (the gather's rows, the
+SwiGLU's output and both gradients that enter the GEMMs' backward), so
+they pass through the grouped GEMMs adding nothing to any weight's
+gradient; the rows at or past the last offset, which the grouped GEMM
+never writes, are never read.  For CPU tensors ``ops/cuda_kernel.py`` runs
+each kernel's plain PyTorch version, which the card's kernels are held to.
 
 Conventions are ``gpt.py``'s: parameters in float32, each layer computing
 in ``cfg.dtype`` through explicit casts, norms taking their statistics in
@@ -61,18 +70,24 @@ recomputation records nothing):
   (projections, rope, SDPA, output projection);
 - ``moe.route``: an MoE layer's float32 router, top k, balance loss, and
   ``route_plan``'s sort and offsets;
-- ``moe.experts``: the held experts' gather and grouped GEMMs;
-- ``moe.combine``: the weighted float32 combine into the tokens;
+- ``moe.experts``: the held experts' gather, grouped GEMMs and SwiGLU
+  (on the card the ``moe_gather`` and ``moe_swiglu`` kernels);
+- ``moe.combine``: the weighted float32 combine into the tokens (on the
+  card the ``moe_combine`` kernel);
 - ``moe.shared``: the shared experts' SwiGLU and its sum with the routed
   part.
 
-Each MoE layer keeps two int64 counters on its device, added to in the
-step with no host synchronisation, both in (token, slot) pairs:
-``MoE.expert_tokens`` (``[experts_held]``, the pairs each held expert
-took) and ``MoE.tokens_dropped`` (the pairs routed to a held expert that
-found no row of the buffer: 0 by construction, a check).  ``moe_counters``
-reads every layer's counters in one copy from the card;
-``reset_moe_counters`` zeroes them there without a synchronisation.
+Each MoE layer keeps three int64 counters on its device, added to in the
+step with no host synchronisation: ``MoE.expert_tokens``
+(``[experts_held]``, the (token, slot) pairs each held expert took),
+``MoE.tokens_dropped`` (the pairs routed to a held expert that found no
+row of the buffer: 0 by construction, a check), both in pairs, and
+``MoE.rows_filled`` (a scalar, in rows: the buffer's rows below the last
+offset, filled and padding, summed over the layer's forwards; over
+forwards times the buffer's rows it is the share of the buffer that the
+kernels touch).  ``moe_counters`` reads every layer's counters in one
+copy from the card; ``reset_moe_counters`` zeroes them there without a
+synchronisation.
 ``MoE.last_routes`` holds the last forward's top-k expert ids (``[tokens,
 k]``, no gradient).
 """
@@ -88,6 +103,7 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import cuda_kernel as ck
 from ..telemetry import NULL_SPAN
 from ..telemetry import span as _span
 from .gpt import Embed, init_module_
@@ -303,10 +319,11 @@ def route_plan(idx: torch.Tensor, first: int, held: int) -> dict:
     experts last); expert g's pairs take rows ``[ends[g] - padded[g],
     ends[g] - padded[g] + counts[g])`` of a buffer of ``N*k + held *
     (ALIGN - 1)`` rows, each group padded to a multiple of ``ALIGN``.
-    Returns ``pair`` (the pair each row holds, clamped), ``valid`` (the
-    row holds a pair), ``ends`` (int32, the grouped GEMM's offsets),
-    ``counts`` (int64 pairs a held expert) and ``dropped`` (held pairs
-    with no row: 0)."""
+    Returns ``row`` (int32 ``[N*k]``, the row of each pair, -1 for a pair
+    of an expert held elsewhere), ``rows`` (the buffer's rows), ``ends``
+    (int32, the grouped GEMM's offsets), ``counts`` (int64 pairs a held
+    expert) and ``dropped`` (held pairs that found no row of their own:
+    0)."""
     n_pairs = idx.numel()
     local = idx.reshape(-1) - first
     key = torch.where((local >= 0) & (local < held), local, held)
@@ -322,12 +339,12 @@ def route_plan(idx: torch.Tensor, first: int, held: int) -> dict:
     g = sk.clamp(max=held - 1)
     dest = torch.where(sk < held, ends[g] - padded[g] + in_group, rows)
     # every pair of an expert held elsewhere lands on one row past the end
-    pair = torch.full((rows + 1,), n_pairs, dtype=torch.int64,
-                      device=idx.device).scatter_(0, dest, order)[:rows]
-    valid = pair < n_pairs
-    return dict(pair=pair.clamp(max=n_pairs - 1), valid=valid,
-                ends=ends.to(torch.int32), counts=counts[:held],
-                dropped=counts[:held].sum() - valid.sum())
+    taken = torch.zeros(rows + 1, dtype=torch.bool,
+                        device=idx.device).index_fill_(0, dest, True)[:rows]
+    row = torch.empty(n_pairs, dtype=torch.int32, device=idx.device)
+    row.scatter_(0, order, torch.where(sk < held, dest, -1).to(torch.int32))
+    return dict(row=row, rows=rows, ends=ends.to(torch.int32),
+                counts=counts[:held], dropped=counts[:held].sum() - taken.sum())
 
 
 class MoE(nn.Module):
@@ -348,6 +365,9 @@ class MoE(nn.Module):
             cfg.experts_held, dtype=torch.int64), persistent=False)
         self.register_buffer("tokens_dropped", torch.zeros(
             (), dtype=torch.int64), persistent=False)
+        #: rows of the buffer below its last offset, summed over forwards
+        self.register_buffer("rows_filled", torch.zeros(
+            (), dtype=torch.int64), persistent=False)
         #: the last forward's top-k expert ids ``[N, k]`` (no gradient)
         self.last_routes = None
 
@@ -363,30 +383,15 @@ class MoE(nn.Module):
         return c.aux_loss_alpha * (f * scores.view(B, L, E).mean(1)).sum(
             1).mean()
 
-    def _routed(self, x, w, pair, valid, ends, first: list) -> torch.Tensor:
+    def _routed(self, x, w, plan: dict, first: list) -> torch.Tensor:
         """The held experts' part of the result, float32 ``[N, D]``: each
-        row's token gathered, the grouped GEMMs, the weighted combine.
-        Where ``RECOMPUTE_EXPERTS``, recomputed in the backward
-        (``checkpoint``), which keeps none of the buffer's rows; the spans
-        are recorded on the first call."""
-        c, dt = self.cfg, self.cfg.dtype
+        row's token gathered, the grouped GEMMs, the weighted combine
+        (``routed_kernels``).  Where ``RECOMPUTE_EXPERTS``, recomputed in
+        the backward (``checkpoint``), which keeps none of the buffer's
+        rows; the spans are recorded on the first call."""
         span = _span if first[0] else _no_span
         first[0] = False
-        valid = valid[:, None]
-        tok = pair // c.num_experts_per_tok
-        with span("moe.experts", device_ms=x.device):
-            rows = torch.where(valid, x.index_select(0, tok), 0)
-            gu = torch._grouped_mm(
-                rows, self.experts_gate_up.weight.to(dt).transpose(-2, -1),
-                offs=ends)
-            g, u = gu.split(c.moe_intermediate_size, dim=-1)
-            y = torch._grouped_mm(
-                F.silu(g) * u, self.experts_down.weight.to(dt).transpose(
-                    -2, -1), offs=ends)
-        with span("moe.combine", device_ms=x.device):
-            y = torch.where(valid, y, 0).float() * w.reshape(-1).index_select(
-                0, pair)[:, None]
-            return torch.zeros(x.shape, device=x.device).index_add_(0, tok, y)
+        return routed_kernels(self, x, w, plan, span)
 
     def forward(self, h: torch.Tensor) -> tuple:
         c, dt = self.cfg, self.cfg.dtype
@@ -402,13 +407,82 @@ class MoE(nn.Module):
                 plan = route_plan(idx, c.first_held_expert, c.experts_held)
                 self.expert_tokens += plan["counts"]
                 self.tokens_dropped += plan["dropped"]
-        args = (x, w, plan["pair"], plan["valid"], plan["ends"], [True])
+                self.rows_filled += plan["ends"][-1]
+        args = (x, w, plan, [True])
         routed = (checkpoint(self._routed, *args, use_reentrant=False,
                              preserve_rng_state=False)
                   if RECOMPUTE_EXPERTS else self._routed(*args))
         with _span("moe.shared", device_ms=dev):
             out = routed.to(dt) + self.shared(x, dt)
         return out.view(B, T, D), aux
+
+
+def routed_kernels(moe: MoE, x, w, plan: dict,
+                   span=_no_span) -> torch.Tensor:
+    """``MoE._routed``: the gather, the grouped GEMMs with the SwiGLU
+    between them and the combine, through the ``moe_*`` kernels, which
+    touch only the filled rows (``ops/cuda_kernel.py`` runs their plain
+    versions for CPU tensors)."""
+    row, ends, counts = plan["row"], plan["ends"], plan["counts"]
+    dt = moe.cfg.dtype
+    with span("moe.experts", device_ms=x.device):
+        rows = _Gather.apply(x, row, ends, counts, plan["rows"])
+        gu = torch._grouped_mm(rows, moe.experts_gate_up.weight.to(
+            dt).transpose(-2, -1), offs=ends)
+        y = torch._grouped_mm(_SwiGLU.apply(gu, ends, counts),
+                              moe.experts_down.weight.to(dt).transpose(
+                                  -2, -1), offs=ends)
+    with span("moe.combine", device_ms=x.device):
+        return _Combine.apply(y, w, row, ends, counts)
+
+
+class _Gather(torch.autograd.Function):
+    """The buffer's rows from the tokens (``ck.moe_gather``); the backward
+    sums each token's rows (``ck.moe_gather_backward``)."""
+
+    @staticmethod
+    def forward(ctx, x, row, ends, counts, rows: int):
+        ctx.save_for_backward(row)
+        ctx.tokens = x.shape[0]
+        return ck.moe_gather(x, row, ends, counts, rows)
+
+    @staticmethod
+    def backward(ctx, drows):
+        (row,) = ctx.saved_tensors
+        return (ck.moe_gather_backward(drows.contiguous(), row, ctx.tokens),
+                None, None, None, None)
+
+
+class _SwiGLU(torch.autograd.Function):
+    """``silu(g) * u`` of the buffer's rows ``[g | u]`` (``ck.moe_swiglu``,
+    ``ck.moe_swiglu_backward``)."""
+
+    @staticmethod
+    def forward(ctx, gu, ends, counts):
+        ctx.save_for_backward(gu, ends, counts)
+        return ck.moe_swiglu(gu, ends, counts)
+
+    @staticmethod
+    def backward(ctx, dh):
+        gu, ends, counts = ctx.saved_tensors
+        return (ck.moe_swiglu_backward(gu, dh.contiguous(), ends, counts),
+                None, None)
+
+
+class _Combine(torch.autograd.Function):
+    """The weighted float32 sum of each token's rows (``ck.moe_combine``);
+    the backward gives the rows' and the weights' gradients
+    (``ck.moe_combine_backward``)."""
+
+    @staticmethod
+    def forward(ctx, y, w, row, ends, counts):
+        ctx.save_for_backward(y, w, row, ends, counts)
+        return ck.moe_combine(y, w, row)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dy, dw = ck.moe_combine_backward(dout.contiguous(), *ctx.saved_tensors)
+        return dy, dw, None, None, None
 
 
 class DecoderLayer(nn.Module):
@@ -485,24 +559,28 @@ def init_deepseek_params(cfg: DeepSeekV2Config,
 def moe_counters(model: DeepSeekV2) -> dict:
     """The MoE layers' counters, read from the card in one copy:
     ``expert_tokens`` (``[moe layers][held experts]``, the (token, slot)
-    pairs each held expert took since the last reset) and
-    ``tokens_dropped`` (held pairs that found no row, summed over the
-    layers; 0 unless the routing is at fault).  Units: (token, slot)
-    pairs."""
+    pairs each held expert took since the last reset), ``tokens_dropped``
+    (held pairs that found no row, summed over the layers; 0 unless the
+    routing is at fault), both in (token, slot) pairs, and ``rows_filled``
+    (``[moe layers]``, in rows: the buffer's rows below its last offset
+    over the forwards since the last reset)."""
     layers = model.moe_layers()
     if not layers:
-        return dict(expert_tokens=[], tokens_dropped=0)
-    both = torch.cat([torch.stack([m.expert_tokens for m in layers]),
-                      torch.stack([m.tokens_dropped for m in layers])[:, None]],
-                     dim=1).cpu()
-    return dict(expert_tokens=both[:, :-1].tolist(),
-                tokens_dropped=int(both[:, -1].sum()))
+        return dict(expert_tokens=[], tokens_dropped=0, rows_filled=[])
+    read = torch.cat([torch.stack([m.expert_tokens for m in layers]),
+                      torch.stack([torch.stack([m.tokens_dropped,
+                                                m.rows_filled])
+                                   for m in layers])], dim=1).cpu()
+    return dict(expert_tokens=read[:, :-2].tolist(),
+                tokens_dropped=int(read[:, -2].sum()),
+                rows_filled=read[:, -1].tolist())
 
 
 def reset_moe_counters(model: DeepSeekV2) -> None:
     """Zero every MoE layer's counters on their device, without a
-    synchronisation: ``expert_tokens`` and ``tokens_dropped``, both in
-    (token, slot) pairs."""
+    synchronisation: ``expert_tokens`` and ``tokens_dropped`` (in (token,
+    slot) pairs) and ``rows_filled`` (in rows)."""
     for m in model.moe_layers():
         m.expert_tokens.zero_()
         m.tokens_dropped.zero_()
+        m.rows_filled.zero_()

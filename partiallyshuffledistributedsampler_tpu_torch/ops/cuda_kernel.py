@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/``.
 
-Thirteen kernels, each with a wrapper, a plain PyTorch version and a
+Nineteen kernels, each with a wrapper, a plain PyTorch version and a
 launch counter:
 
 ====================  ===================================  ==========================
@@ -45,6 +45,12 @@ weighted_stream_wide  ordinals, the remainder chain or     ``weighted_stream_at_
                       given ordinals, then                 ``generic`` (under
                       ``sampling.alias.weighted_``         ``weighted_epoch_``
                       ``stream_at_generic``)               ``indices_jax``)
+moe_gather            ``moe_gather_ref``                   none: the routed path of
+moe_gather_backward   ``moe_gather_backward_ref``          ``models/deepseek_v2.py``
+moe_swiglu            ``moe_swiglu_ref``                   (PyTorch ops over every
+moe_swiglu_backward   ``moe_swiglu_backward_ref``          row of its buffer; the
+moe_combine           ``moe_combine_ref``                  JAX package has no MoE)
+moe_combine_backward  ``moe_combine_backward_ref``
 ====================  ===================================  ==========================
 
 (paths of the JAX package ``partiallyshuffledistributedsampler_tpu``).  The
@@ -59,8 +65,8 @@ spec's keys and source table take at most ``FOLD_WORDS_CAP`` words
 (``mixture_folds``) a regen lets either derive the keys itself, one
 launch; past that ``mixture_source_keys`` writes them first.
 
-Every kernel takes 0 to ``MAX_ROUNDS`` (4,096) swap-or-not rounds; a
-wrapper raises ``ValueError`` above that.
+Every kernel of the law (all but ``moe_*``) takes 0 to ``MAX_ROUNDS``
+(4,096) swap-or-not rounds; a wrapper raises ``ValueError`` above that.
 
 The key of a launch is ``seed`` and ``epoch`` as scalars, or ``triple``:
 an int32[3] tensor on the launch device holding the uint32 bits of
@@ -79,9 +85,17 @@ epoch below 2^31 draws), the wide one on uint64 ordinals and on given
 ordinal buffers; both write int32 ids, or int64 when the sources total
 2^31 or more.
 
+The six ``moe_*`` kernels serve an MoE layer's held experts around their
+grouped GEMMs, on the buffer of ``models/deepseek_v2.py`` ``route_plan``
+(bf16 or float32 rows, int32 ``row``/``ends``, int64 ``counts``, all on
+the card): they read the buffer's fill there and touch only its filled
+rows, zero the padding rows, and leave the rows at or past ``ends[-1]``
+alone.
+
 The kernels are built with ``nvcc`` at first use into ``csrc/build/`` of
 this package, one shared library per source (``index_kernels.cu``,
-``mixture_kernels.cu``, ``shard_kernels.cu``, ``sampling_kernels.cu``), all
+``mixture_kernels.cu``, ``shard_kernels.cu``, ``sampling_kernels.cu``,
+``moe_kernels.cu``), all
 compiled at once and each named by a hash of every file its build may read
 (the source and the headers ``law.cuh`` and ``chain.cuh``), so an edited
 file rebuilds.  They are bound through ctypes over a plain C ABI.  Nothing is
@@ -109,7 +123,8 @@ _CSRC = os.path.join(
 _SOURCES = {"index": os.path.join(_CSRC, "index_kernels.cu"),
             "mixture": os.path.join(_CSRC, "mixture_kernels.cu"),
             "shard": os.path.join(_CSRC, "shard_kernels.cu"),
-            "sampling": os.path.join(_CSRC, "sampling_kernels.cu")}
+            "sampling": os.path.join(_CSRC, "sampling_kernels.cu"),
+            "moe": os.path.join(_CSRC, "moe_kernels.cu")}
 _HEADERS = (os.path.join(_CSRC, "law.cuh"), os.path.join(_CSRC, "chain.cuh"))
 _BUILD_DIR = os.path.join(_CSRC, "build")
 #: nvcc flags: Hopper's sm_90a, optimised, a shared library with a C ABI;
@@ -135,7 +150,10 @@ launches = {"index_general": 0, "index_amortized": 0,
             "index_positions": 0, "index_positions_wide": 0,
             "mixture_source_keys": 0, "mixture_fused": 0,
             "mixture_fused_wide": 0, "shard_row_keys": 0, "shard_expand": 0,
-            "weighted_stream": 0, "weighted_stream_wide": 0}
+            "weighted_stream": 0, "weighted_stream_wide": 0,
+            "moe_gather": 0, "moe_gather_backward": 0, "moe_swiglu": 0,
+            "moe_swiglu_backward": 0, "moe_combine": 0,
+            "moe_combine_backward": 0}
 
 _libs: dict = {}
 #: guards ``launches``, the builds and ``_libs``: an index server regenerates
@@ -186,8 +204,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str = "index") -> str:
-    """Where the build of library ``name`` ('index', 'mixture', 'shard' or
-    'sampling') of the current sources lives: named by a hash of every file
+    """Where the build of library ``name`` ('index', 'mixture', 'shard',
+    'sampling' or 'moe') of the current sources lives: named by a hash of every file
     its build may read and of the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in (_SOURCES[name], *_HEADERS):
@@ -270,6 +288,23 @@ def _load_locked(name: str) -> ctypes.CDLL:
                                u32, u32, i32, ptr, u32, u64, u64, u32, u32,
                                u32, u32, u64, u32, u32, u32, u32, u32, i32,
                                i32, i32, i32, i32, ptr]
+        elif name == "moe":
+            fns = (lib.psds_moe_gather, lib.psds_moe_gather_backward,
+                   lib.psds_moe_swiglu, lib.psds_moe_swiglu_backward,
+                   lib.psds_moe_combine, lib.psds_moe_combine_backward)
+            lib.psds_moe_gather.argtypes = [ptr, ptr, ptr, ptr, ptr, u64,
+                                            i32, i32, u64, i32, ptr]
+            lib.psds_moe_gather_backward.argtypes = [ptr, ptr, ptr, u64, i32,
+                                                     u64, i32, ptr]
+            lib.psds_moe_swiglu.argtypes = [ptr, ptr, ptr, ptr, u64, i32,
+                                            u64, i32, ptr]
+            lib.psds_moe_swiglu_backward.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                                     u64, i32, u64, i32, ptr]
+            lib.psds_moe_combine.argtypes = [ptr, ptr, ptr, ptr, u64, i32,
+                                             u64, i32, ptr]
+            lib.psds_moe_combine_backward.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, u64, i32, i32, u64,
+                i32, ptr]
         elif name == "shard":
             fns = (lib.psds_shard_row_keys, lib.psds_shard_expand)
             lib.psds_shard_row_keys.argtypes = [ptr, ptr, ptr, u64, ptr, u32,
@@ -1405,3 +1440,289 @@ def weighted_stream_wide(table, source_sizes, seed, epoch, *,
                      chain=chain, positions=positions, window=window,
                      shuffle=shuffle, rounds=rounds, retry=retry,
                      device=device)
+
+
+# -------------------------------------------------------------------- moe
+#: the activations the MoE kernels take (``csrc/moe_kernels.cu``)
+_MOE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _moe_filled(ends: torch.Tensor, counts: torch.Tensor,
+                rows: int) -> torch.Tensor:
+    """bool [rows]: which rows of a ``route_plan`` buffer hold a pair.
+    Group g is rows ``[ends[g-1], ends[g])`` (from 0 for g = 0), its
+    first ``counts[g]`` filled, the rest padding; rows at or past
+    ``ends[-1]`` are in no group."""
+    e = ends.long()
+    r = torch.arange(rows, device=e.device)
+    g = torch.searchsorted(e, r, right=True)
+    inside = g < e.numel()
+    g = g.clamp(max=e.numel() - 1)
+    starts = torch.cat([e.new_zeros(1), e[:-1]])
+    return inside & (r - starts[g] < counts[g])
+
+
+def _slot_tokens(row: torch.Tensor, tokens: int) -> torch.Tensor:
+    """The token of each (token, slot) pair of ``row`` [tokens * k]."""
+    return torch.arange(row.numel(), device=row.device) // (
+        row.numel() // tokens)
+
+
+def moe_gather_ref(x, row, ends, counts, rows: int) -> torch.Tensor:
+    """``moe_gather``'s plain version: every row zero but the filled ones,
+    row ``row[t*k + s]`` a copy of ``x[t]``."""
+    held = row >= 0
+    out = x.new_zeros(rows, x.shape[1])
+    out[row[held].long()] = x[_slot_tokens(row, x.shape[0])[held]]
+    return out
+
+
+def moe_gather_backward_ref(drows, row, tokens: int) -> torch.Tensor:
+    """``moe_gather_backward``'s plain version: each token's held slots'
+    rows of ``drows`` summed in float32 in slot order, rounded once."""
+    part = torch.where((row >= 0)[:, None],
+                       drows[row.clamp(min=0).long()].float(), 0)
+    return part.view(tokens, -1, drows.shape[1]).sum(1).to(drows.dtype)
+
+
+def moe_swiglu_ref(gu, ends, counts) -> torch.Tensor:
+    """``moe_swiglu``'s plain version: ``F.silu(g) * u`` of ``gu = [g |
+    u]`` on the filled rows, zero on every other row."""
+    g, u = gu.chunk(2, dim=-1)
+    return torch.where(_moe_filled(ends, counts, gu.shape[0])[:, None],
+                       torch.nn.functional.silu(g) * u, 0)
+
+
+def moe_swiglu_backward_ref(gu, dh, ends, counts) -> torch.Tensor:
+    """``moe_swiglu_backward``'s plain version: autograd's gradient of
+    ``F.silu(g) * u`` with respect to ``gu`` on the filled rows, zero on
+    every other row."""
+    with torch.enable_grad():
+        leaf = gu.detach().requires_grad_()
+        g, u = leaf.chunk(2, dim=-1)
+        (dgu,) = torch.autograd.grad(torch.nn.functional.silu(g) * u, leaf,
+                                     dh)
+    return torch.where(_moe_filled(ends, counts, gu.shape[0])[:, None],
+                       dgu, 0)
+
+
+def moe_combine_ref(y, w, row) -> torch.Tensor:
+    """``moe_combine``'s plain version: float32 ``[N, D]``, token t the
+    sum in slot order of ``w[t, s] * float(y[row[t*k + s]])`` over its
+    held slots (each product rounded), 0 where none is held."""
+    part = torch.where((row >= 0)[:, None],
+                       y[row.clamp(min=0).long()].float()
+                       * w.reshape(-1)[:, None], 0)
+    return part.view(*w.shape, y.shape[1]).sum(1)
+
+
+def moe_combine_backward_ref(dout, y, w, row, ends,
+                             counts) -> tuple:
+    """``moe_combine_backward``'s plain version: ``(dy, dw)``, ``dy`` of
+    ``y``'s shape and dtype with ``dtype(w[t, s] * dout[t])`` on row
+    ``row[t*k + s]`` and zero on every other row, ``dw`` float32 ``[N,
+    k]``, ``<dout[t], float(y[row[t*k + s]])>`` on held slots and 0 on the
+    others."""
+    held = row >= 0
+    tok = _slot_tokens(row, w.shape[0])
+    dy = torch.zeros_like(y)
+    dy[row[held].long()] = (dout[tok[held]] * w.reshape(-1)[held][:, None]
+                            ).to(y.dtype)
+    dw = torch.where(held, (dout[tok] * y[row.clamp(min=0).long()].float()
+                            ).sum(-1), 0)
+    return dy, dw.view(w.shape)
+
+
+def _check_moe_index(device, **index) -> None:
+    """Raise unless each of ``row``, ``ends`` and ``counts`` given is
+    ``route_plan``'s kind on ``device``: contiguous 1-D int32, int32 and
+    int64, ``ends`` and ``counts`` one entry a held expert."""
+    dtypes = dict(row=torch.int32, ends=torch.int32, counts=torch.int64)
+    for name, t in index.items():
+        if not (t.dtype == dtypes[name] and t.dim() == 1
+                and t.is_contiguous() and t.device == device):
+            raise ValueError(f"{name} must be a contiguous 1-D "
+                             f"{dtypes[name]} tensor on {device}")
+    if "ends" in index and not (
+            0 < index["ends"].numel() == index["counts"].numel()):
+        raise ValueError("ends and counts need one entry a held expert")
+
+
+def _check_moe_rows(name: str, t: torch.Tensor, device, dtype=None) -> None:
+    """Raise unless ``t`` is a contiguous 2-D bf16 or float32 tensor (of
+    ``dtype`` where given) on ``device`` whose rows are whole 16-byte
+    packs."""
+    if not (t.dtype in _MOE_DTYPES and t.dim() == 2 and t.is_contiguous()
+            and t.device == device and (dtype is None or t.dtype == dtype)):
+        raise ValueError(
+            f"{name} must be a contiguous 2-D {dtype or 'bf16 or float32'} "
+            f"tensor on {device}")
+    if t.shape[1] * t.element_size() % 16:
+        raise ValueError(f"{name}'s rows must be a multiple of 16 bytes, "
+                         f"got {t.shape[1]} x {t.element_size()}")
+
+
+def _slots(row: torch.Tensor, tokens: int) -> int:
+    if tokens < 1 or row.numel() % tokens or row.numel() == 0:
+        raise ValueError(f"row must hold k >= 1 slots for each of {tokens} "
+                         f"tokens, got {row.numel()}")
+    return row.numel() // tokens
+
+
+def moe_gather(x, row, ends, counts, rows: int) -> torch.Tensor:
+    """The held experts' buffer of ``rows`` rows from the tokens ``x``
+    ``[N, D]`` (``moe_gather_ref``) on ``x``'s device: row ``row[t*k +
+    s]`` a copy of ``x[t]`` for every held slot, each group's padding rows
+    zero, and on the card the rows at or past ``ends[-1]`` not written.
+    ``row``, ``ends`` and ``counts`` are ``route_plan``'s for a buffer of
+    ``rows`` rows."""
+    if device_kind(x.device) == "cpu":
+        return moe_gather_ref(x, row, ends, counts, rows)
+    _check_moe_rows("x", x, x.device)
+    _check_moe_index(x.device, row=row, ends=ends, counts=counts)
+    tokens, d = x.shape
+    k = _slots(row, tokens)
+    if rows < row.numel():
+        raise ValueError(f"a buffer of {rows} rows cannot hold "
+                         f"{row.numel()} pairs")
+    out = torch.empty(rows, d, dtype=x.dtype, device=x.device)
+    lib = _load("moe")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _count("moe_gather")
+    _check("moe_gather", lib.psds_moe_gather(
+        out.data_ptr(), x.data_ptr(), row.data_ptr(), ends.data_ptr(),
+        counts.data_ptr(), tokens, k, ends.numel(), d,
+        int(x.dtype == torch.bfloat16), stream))
+    return out
+
+
+def moe_gather_backward(drows, row, tokens: int) -> torch.Tensor:
+    """``moe_gather``'s gradient with respect to ``x`` (``moe_gather_
+    backward_ref``): ``[tokens, D]`` in ``drows``' dtype, each token's held
+    slots' rows summed in float32 in slot order and rounded once; reads no
+    other row of ``drows``."""
+    if device_kind(drows.device) == "cpu":
+        return moe_gather_backward_ref(drows, row, tokens)
+    _check_moe_rows("drows", drows, drows.device)
+    _check_moe_index(drows.device, row=row)
+    k = _slots(row, tokens)
+    d = drows.shape[1]
+    dx = torch.empty(tokens, d, dtype=drows.dtype, device=drows.device)
+    lib = _load("moe")
+    stream = torch.cuda.current_stream(drows.device).cuda_stream
+    _count("moe_gather_backward")
+    _check("moe_gather_backward", lib.psds_moe_gather_backward(
+        dx.data_ptr(), drows.data_ptr(), row.data_ptr(), tokens, k, d,
+        int(drows.dtype == torch.bfloat16), stream))
+    return dx
+
+
+def moe_swiglu(gu, ends, counts) -> torch.Tensor:
+    """``h = silu(g) * u`` of the buffer's rows ``gu = [g | u]`` ``[R,
+    2F]`` (``moe_swiglu_ref``) on ``gu``'s device: ``[R, F]``, padding rows
+    zero; on the card the rows at or past ``ends[-1]`` are neither read
+    nor written."""
+    if device_kind(gu.device) == "cpu":
+        return moe_swiglu_ref(gu, ends, counts)
+    _check_moe_rows("gu", gu, gu.device)
+    _check_moe_index(gu.device, ends=ends, counts=counts)
+    rows, f = gu.shape[0], gu.shape[1] // 2
+    if gu.shape[1] % 2 or f * gu.element_size() % 16:
+        raise ValueError(f"gu's halves must be a multiple of 16 bytes, got "
+                         f"{gu.shape[1]} columns")
+    h = torch.empty(rows, f, dtype=gu.dtype, device=gu.device)
+    lib = _load("moe")
+    stream = torch.cuda.current_stream(gu.device).cuda_stream
+    _count("moe_swiglu")
+    _check("moe_swiglu", lib.psds_moe_swiglu(
+        h.data_ptr(), gu.data_ptr(), ends.data_ptr(), counts.data_ptr(),
+        rows, ends.numel(), f, int(gu.dtype == torch.bfloat16), stream))
+    return h
+
+
+def moe_swiglu_backward(gu, dh, ends, counts) -> torch.Tensor:
+    """``moe_swiglu``'s gradient with respect to ``gu`` from ``dh`` ``[R,
+    F]`` (``moe_swiglu_backward_ref``): ``[R, 2F]``, padding rows zero; on
+    the card the rows at or past ``ends[-1]`` are neither read nor
+    written."""
+    if device_kind(gu.device) == "cpu":
+        return moe_swiglu_backward_ref(gu, dh, ends, counts)
+    _check_moe_rows("gu", gu, gu.device)
+    _check_moe_rows("dh", dh, gu.device, gu.dtype)
+    _check_moe_index(gu.device, ends=ends, counts=counts)
+    rows, f = dh.shape
+    if gu.shape != (rows, 2 * f):
+        raise ValueError(f"gu {tuple(gu.shape)} is not dh {tuple(dh.shape)} "
+                         f"with both halves")
+    dgu = torch.empty_like(gu)
+    lib = _load("moe")
+    stream = torch.cuda.current_stream(gu.device).cuda_stream
+    _count("moe_swiglu_backward")
+    _check("moe_swiglu_backward", lib.psds_moe_swiglu_backward(
+        dgu.data_ptr(), gu.data_ptr(), dh.data_ptr(), ends.data_ptr(),
+        counts.data_ptr(), rows, ends.numel(), f,
+        int(gu.dtype == torch.bfloat16),
+        stream))
+    return dgu
+
+
+def _check_moe_weights(w, device) -> tuple:
+    if not (w.dtype == torch.float32 and w.dim() == 2 and w.is_contiguous()
+            and w.device == device):
+        raise ValueError(
+            f"w must be a contiguous float32 [tokens, k] tensor on {device}")
+    return w.shape
+
+
+def moe_combine(y, w, row) -> torch.Tensor:
+    """The held experts' part of each token (``moe_combine_ref``) on
+    ``y``'s device: float32 ``[N, D]``, token t the sum in slot order of
+    ``w[t, s] * float(y[row[t*k + s]])`` over its held slots, 0 where none
+    is held; reads no other row of ``y``.  ``w`` is the routing weights,
+    float32 ``[N, k]``."""
+    if device_kind(y.device) == "cpu":
+        return moe_combine_ref(y, w, row)
+    _check_moe_rows("y", y, y.device)
+    tokens, k = _check_moe_weights(w, y.device)
+    _check_moe_index(y.device, row=row)
+    if row.numel() != tokens * k:
+        raise ValueError(f"row has {row.numel()} slots, w {tokens * k}")
+    out = torch.empty(tokens, y.shape[1], dtype=torch.float32,
+                      device=y.device)
+    lib = _load("moe")
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    _count("moe_combine")
+    _check("moe_combine", lib.psds_moe_combine(
+        out.data_ptr(), y.data_ptr(), w.data_ptr(), row.data_ptr(), tokens,
+        k, y.shape[1], int(y.dtype == torch.bfloat16), stream))
+    return out
+
+
+def moe_combine_backward(dout, y, w, row, ends, counts) -> tuple:
+    """``moe_combine``'s gradients from ``dout`` (float32 ``[N, D]``),
+    ``(dy, dw)`` (``moe_combine_backward_ref``): ``dy`` of ``y``'s shape
+    and dtype, ``dtype(w[t, s] * dout[t])`` on row ``row[t*k + s]``,
+    padding rows zero and on the card the rows at or past ``ends[-1]`` not
+    written; ``dw`` float32 ``[N, k]``, ``<dout[t], float(y[row[t*k +
+    s]])>`` on held slots and 0 on the others."""
+    if device_kind(y.device) == "cpu":
+        return moe_combine_backward_ref(dout, y, w, row, ends, counts)
+    _check_moe_rows("y", y, y.device)
+    _check_moe_rows("dout", dout, y.device, torch.float32)
+    tokens, k = _check_moe_weights(w, y.device)
+    _check_moe_index(y.device, row=row, ends=ends, counts=counts)
+    if row.numel() != tokens * k or dout.shape != (tokens, y.shape[1]):
+        raise ValueError(f"row ({row.numel()} slots) and dout "
+                         f"{tuple(dout.shape)} must match w {(tokens, k)} "
+                         f"and y's width {y.shape[1]}")
+    dy = torch.empty_like(y)
+    dw = torch.empty(tokens, k, dtype=torch.float32, device=y.device)
+    lib = _load("moe")
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    _count("moe_combine_backward")
+    _check("moe_combine_backward", lib.psds_moe_combine_backward(
+        dy.data_ptr(), dw.data_ptr(), y.data_ptr(), w.data_ptr(),
+        row.data_ptr(), dout.data_ptr(), ends.data_ptr(), counts.data_ptr(),
+        tokens, k, ends.numel(), y.shape[1], int(y.dtype == torch.bfloat16),
+        stream))
+    return dy, dw

@@ -153,24 +153,141 @@ def test_the_shares_add_up_to_the_uncut_layer(seed):
 
 @pytest.mark.parametrize("held,first", [(8, 0), (3, 2), (1, 7)])
 def test_route_plan_places_every_held_pair_once(held, first):
+    """(8, 0) is the worst case: every slot names a held expert."""
     g = torch.Generator().manual_seed(held)
     idx = torch.stack([torch.randperm(8, generator=g)[:2]
                        for _ in range(97)])
     plan = D.route_plan(idx, first, held)
     flat = idx.reshape(-1)
     is_held = (flat >= first) & (flat < first + held)
-    pairs = plan["pair"][plan["valid"]]
-    assert sorted(pairs.tolist()) == torch.nonzero(is_held)[:, 0].tolist()
+    assert plan["rows"] == flat.numel() + held * (D.ALIGN - 1)
     ends = plan["ends"].long()
     starts = torch.cat([ends.new_zeros(1), ends[:-1]])
     assert ((ends - starts) % D.ALIGN == 0).all()
+    assert int(ends[-1]) <= plan["rows"]
+    # row: -1 on exactly the pairs of experts held elsewhere; expert j's
+    # pairs fill the first counts[j] rows of its group, one row each
+    row = plan["row"]
+    assert row.dtype == torch.int32 and row.shape == flat.shape
+    assert torch.equal(row >= 0, is_held)
     for j in range(held):
-        rows = torch.arange(int(starts[j]), int(ends[j]))
-        got = plan["pair"][rows][plan["valid"][rows]]
-        assert (flat[got] == first + j).all()
+        got = sorted(row[flat == first + j].tolist())
         assert len(got) == int(plan["counts"][j])
-    assert not plan["valid"][int(ends[-1]):].any()
+        assert got == list(range(int(starts[j]), int(starts[j]) + len(got)))
     assert int(plan["dropped"]) == 0
+    assert is_held.all() == (held == 8)
+
+
+def test_route_plan_with_no_held_pair():
+    """No slot names a held expert: every group is empty, no row is
+    filled and every pair's row is -1."""
+    g = torch.Generator().manual_seed(9)
+    others = torch.tensor([0, 1, 5, 6, 7])
+    idx = torch.stack([others[torch.randperm(5, generator=g)[:2]]
+                       for _ in range(97)])
+    plan = D.route_plan(idx, 2, 3)
+    assert plan["rows"] == 97 * 2 + 3 * (D.ALIGN - 1)
+    assert plan["ends"].tolist() == [0, 0, 0]
+    assert plan["counts"].tolist() == [0, 0, 0]
+    assert int(plan["dropped"]) == 0
+    assert plan["row"].dtype == torch.int32
+    assert (plan["row"] == -1).all()
+
+
+#: kinds of routes: random, every slot held, none held, each token's one
+#: held slot on the first held expert, or on the last
+ROUTES = ("random", "all", "none", "first", "last")
+
+
+def routes_of(kind: str, n: int, experts: int, k: int, first: int,
+              held: int, gen: torch.Generator) -> torch.Tensor:
+    """Top-k expert ids ``[n, k]`` (distinct a token) of a kind of
+    ``ROUTES``, for held experts ``[first, first + held)``."""
+    others = torch.tensor([e for e in range(experts)
+                           if not first <= e < first + held])
+    out = []
+    for _ in range(n):
+        pool = others[torch.randperm(len(others), generator=gen)]
+        if kind == "random":
+            ids = torch.randperm(experts, generator=gen)[:k]
+        elif kind == "all":
+            ids = first + torch.randperm(held, generator=gen)[:k]
+        elif kind == "none":
+            ids = pool[:k]
+        else:
+            one = first if kind == "first" else first + held - 1
+            ids = torch.cat([torch.tensor([one]), pool[:k - 1]])
+        out.append(ids[torch.randperm(k, generator=gen)])
+    return torch.stack(out)
+
+
+def routed_torch(moe, x, w, plan: dict) -> torch.Tensor:
+    """The routed part in PyTorch ops over every row of the buffer, the
+    oracle of ``routed_kernels``: each row's pair found from ``row``, the
+    rows that hold none masked with ``torch.where`` (a multiply by zero
+    would keep a NaN of a row the grouped GEMM never writes), an
+    ``index_add`` into zeros for the combine."""
+    row, ends, dt = plan["row"].long(), plan["ends"], moe.cfg.dtype
+    held = torch.nonzero(row >= 0)[:, 0]
+    pair = torch.zeros(plan["rows"], dtype=torch.int64, device=row.device)
+    pair[row[held]] = held
+    valid = torch.zeros(plan["rows"], dtype=torch.bool, device=row.device)
+    valid[row[held]] = True
+    valid = valid[:, None]
+    tok = pair // moe.cfg.num_experts_per_tok
+    rows = torch.where(valid, x.index_select(0, tok), 0)
+    gu = torch._grouped_mm(rows, moe.experts_gate_up.weight.to(
+        dt).transpose(-2, -1), offs=ends)
+    g, u = gu.split(moe.cfg.moe_intermediate_size, dim=-1)
+    y = torch._grouped_mm(torch.nn.functional.silu(g) * u,
+                          moe.experts_down.weight.to(dt).transpose(-2, -1),
+                          offs=ends)
+    y = torch.where(valid, y, 0).float() * w.reshape(-1).index_select(
+        0, pair)[:, None]
+    return torch.zeros(x.shape, device=x.device).index_add_(0, tok, y)
+
+
+def routed_grads(path, moe, x0, w0, plan, cot) -> dict:
+    """``path``'s routed part and its gradients with respect to the
+    tokens, the routing weights and the held experts' weights."""
+    moe.zero_grad(set_to_none=True)
+    x = x0.clone().requires_grad_()
+    w = w0.clone().requires_grad_()
+    y = path(moe, x, w, plan)
+    (y * cot).sum().backward()
+    return dict(y=y.detach(), dx=x.grad, dw=w.grad,
+                gate_up=moe.experts_gate_up.weight.grad,
+                down=moe.experts_down.weight.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ROUTES)
+def test_the_kernel_path_matches_the_torch_path(kind, dtype):
+    """``routed_kernels`` (here the kernels' plain versions of
+    ``ops/cuda_kernel.py``, which the card's kernels are held to) against
+    ``routed_torch``, PyTorch ops over the whole buffer: the routed part
+    and the gradients of the tokens, the routing weights and both expert weights,
+    bit for bit.  With two slots a token every sum of a token's slots is
+    one rounded add in both paths: the torch path's ``index_add`` into
+    zeros adds the first exactly and rounds the second, as the kernels'
+    float32 sums do before their one rounding.  (From three slots on, the
+    bf16 ``index_add`` of ``dx`` rounds at every add, the gather's
+    backward once.)"""
+    cfg = small(dtype=dtype, first_held_expert=2, experts_held=4)
+    moe = init_deepseek_params(cfg, torch.Generator().manual_seed(5)
+                               ).moe_layers()[0]
+    g = torch.Generator().manual_seed(6)
+    n, d = 40, cfg.hidden_size
+    plan = D.route_plan(routes_of(kind, n, 8, 2, 2, 4, g), 2, 4)
+    x0 = torch.randn(n, d, generator=g).to(dtype)
+    w0 = torch.rand(n, 2, generator=g)
+    cot = torch.randn(n, d, generator=g)
+    got = routed_grads(D.routed_kernels, moe, x0, w0, plan, cot)
+    want = routed_grads(routed_torch, moe, x0, w0, plan, cot)
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
+    if kind == "none":
+        assert not got["y"].any() and not got["dx"].any()
 
 
 def test_balance_loss_is_the_sequence_wise_law():
@@ -251,7 +368,8 @@ def mesh():
 def test_the_step_trains_and_counts(mesh, dtype):
     """``make_deepseek_train_step`` over ``make_step``: the loss is the
     model's loss with the balance loss, AdamW moves every parameter, and
-    the counters hold every held pair of the steps and no dropped one."""
+    the counters hold every held pair of the steps, no dropped one, and
+    each forward's rows below the buffer's last offset."""
     cfg = small(dtype=dtype, first_held_expert=2, experts_held=4)
     model = init_deepseek_params(cfg, torch.Generator().manual_seed(7))
     opt = make_optimizer(model)
@@ -261,16 +379,21 @@ def test_the_step_trains_and_counts(mesh, dtype):
     with torch.no_grad():
         _, want = port_loss(model, tok[0:2])
     reset_moe_counters(model)
-    losses, held = [], 0
+    losses, held, rows = [], 0, 0
     for s in range(3):
         losses.append(float(step(model, tok, torch.arange(6), s)))
-        held += sum(((m.last_routes >= 2) & (m.last_routes < 6)).sum()
-                    for m in model.moe_layers())
+        for m in model.moe_layers():
+            held += int(((m.last_routes >= 2) & (m.last_routes < 6)).sum())
+            # each held expert's group padded to ALIGN rows
+            rows += sum(-(-int((m.last_routes == e).sum()) // D.ALIGN)
+                        * D.ALIGN for e in range(2, 6))
     assert losses[0] == pytest.approx(float(want), rel=1e-6)
     counted = moe_counters(model)
     assert counted["tokens_dropped"] == 0
-    assert sum(map(sum, counted["expert_tokens"])) == int(held)
+    assert sum(map(sum, counted["expert_tokens"])) == held
     assert len(counted["expert_tokens"]) == 2
+    assert sum(counted["rows_filled"]) == rows
+    assert len(counted["rows_filled"]) == 2
     after = model.state_dict()
     assert all(not torch.equal(before[k], after[k]) for k in before)
 

@@ -26,6 +26,20 @@ tokens, the gradient of a leaf as ``|g - g_ref|`` over the larger of
   The loss, within 1e-3 (3x bfloat16's largest), does not tell the two
   precisions apart; the gradient and the routes do.
 
+The routed path's kernels (``ops/cuda_kernel.py`` ``moe_*``) are held,
+each with its backward, against their plain versions on the host (the
+PyTorch ops that CPU tensors run, which
+``tests/test_torch_port_deepseek_v2.py`` holds to PyTorch ops over the
+whole buffer bit for bit) at the published widths, in
+float32 and bfloat16, on routes with every slot held, none held, one held
+slot a token on the first held expert or on the last, and random ones;
+every row of an input buffer at or past ``ends[-1]`` is NaN, and the
+kernels run under ``set_sync_debug_mode("error")``.  The whole routed
+path on the card (``routed_kernels``: the kernels around the grouped
+GEMMs) is held against ``routed_torch`` (PyTorch ops over the whole
+buffer) on the host: the routed part and
+the gradients of the tokens, the routing weights and both expert weights.
+
 Run on a GPU machine with
 ``python -m pytest -m cuda tests/test_torch_port_gpu_deepseek_v2.py``.
 """
@@ -45,9 +59,21 @@ from partiallyshuffledistributedsampler_tpu_torch.models import (
     make_deepseek_train_step,
     moe_counters,
 )
+from partiallyshuffledistributedsampler_tpu_torch.models import (
+    deepseek_v2 as D,
+)
 from partiallyshuffledistributedsampler_tpu_torch.models.train import (
     make_optimizer,
     mean_nll,
+)
+from partiallyshuffledistributedsampler_tpu_torch.ops import (
+    cuda_kernel as ck,
+)
+from test_torch_port_deepseek_v2 import (
+    ROUTES,
+    routed_grads,
+    routed_torch,
+    routes_of,
 )
 
 pytestmark = pytest.mark.cuda
@@ -183,3 +209,123 @@ def test_bf16_on_the_card_is_near_f32_on_the_host():
     assert _route_miss(routes, want_routes) <= 0.03
     assert abs(loss - want_loss) <= 1e-3 * want_loss
     assert _grad_gap(grads, want) <= 0.1
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the MoE kernels run on the card)")
+
+
+def _nan_past(t: torch.Tensor, end: int) -> torch.Tensor:
+    t = t.clone()
+    t[end:] = float("nan")
+    return t
+
+
+def _gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``|got - want|`` over ``|want|`` (1 where ``want`` is 0), on the
+    host in float64."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).norm() / max(float(want.norm()), 1.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ROUTES)
+def test_moe_kernels_match_their_plain_versions(kind, dtype):
+    """The six kernels at the published widths (d 2,048, f 1,408, top 6 of
+    64 experts, 8 held from the ninth, 512 tokens) against their plain
+    versions on the host, every row of an input buffer at or past
+    ``ends[-1]`` NaN, under ``set_sync_debug_mode("error")``."""
+    _card()
+    g = torch.Generator().manual_seed(41)
+    n, k, d, f = 512, 6, 2048, 1408
+    plan = D.route_plan(routes_of(kind, n, 64, k, 8, 8, g), 8, 8)
+    row, ends, counts = plan["row"], plan["ends"], plan["counts"]
+    rows, end = plan["rows"], int(ends[-1])
+    host = dict(x=torch.randn(n, d, generator=g).to(dtype),
+                drows=_nan_past(torch.randn(rows, d, generator=g).to(dtype),
+                                end),
+                gu=_nan_past(torch.randn(rows, 2 * f, generator=g).to(dtype),
+                             end),
+                dh=_nan_past(torch.randn(rows, f, generator=g).to(dtype),
+                             end),
+                y=_nan_past(torch.randn(rows, d, generator=g).to(dtype), end),
+                w=torch.rand(n, k, generator=g),
+                dout=torch.randn(n, d, generator=g))
+    card = {name: t.cuda() for name, t in host.items()}
+    crow, cends, ccounts = row.cuda(), ends.cuda(), counts.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dict(
+            rows=ck.moe_gather(card["x"], crow, cends, ccounts, rows),
+            dx=ck.moe_gather_backward(card["drows"], crow, n),
+            h=ck.moe_swiglu(card["gu"], cends, ccounts),
+            dgu=ck.moe_swiglu_backward(card["gu"], card["dh"], cends,
+                                       ccounts),
+            out=ck.moe_combine(card["y"], card["w"], crow))
+        got["dy"], got["dw"] = ck.moe_combine_backward(
+            card["dout"], card["y"], card["w"], crow, cends, ccounts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = {name: t.cpu() for name, t in got.items()}
+    want = dict(
+        rows=ck.moe_gather_ref(host["x"], row, ends, counts, rows),
+        dx=ck.moe_gather_backward_ref(host["drows"], row, n),
+        h=ck.moe_swiglu_ref(host["gu"], ends, counts),
+        dgu=ck.moe_swiglu_backward_ref(host["gu"], host["dh"], ends, counts),
+        out=ck.moe_combine_ref(host["y"], host["w"], row))
+    want["dy"], want["dw"] = ck.moe_combine_backward_ref(
+        host["dout"], host["y"], host["w"], row, ends, counts)
+    for name in ("rows", "h", "dgu", "dy"):  # the buffer's rows below end
+        got[name], want[name] = got[name][:end], want[name][:end]
+    print(kind, dtype, {name: _gap(got[name], want[name]) for name in got})
+    for name in ("rows", "dx", "out", "dy"):
+        assert torch.equal(got[name], want[name]), name
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else dict(
+        rtol=2 ** -7, atol=0)
+    torch.testing.assert_close(got["h"], want["h"], **tol)
+    torch.testing.assert_close(got["dgu"], want["dgu"], **tol)
+    torch.testing.assert_close(got["dw"], want["dw"], rtol=1e-5, atol=1e-4)
+    assert not got["dw"][row.view(n, k) < 0].any()
+
+
+#: limits of the routed path on the card against the torch ops on the
+#: host, by dtype (see ``test_the_routed_path_on_the_card``)
+ROUTED_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ROUTES)
+def test_the_routed_path_on_the_card(kind, dtype, no_tf32):
+    """``routed_kernels`` on the card (the kernels around the grouped
+    GEMMs) against ``routed_torch`` on the host, at the published widths
+    with 16 experts, 8 held from the fifth, top 6 over 256 tokens: the
+    routed part and the gradients of the tokens, the routing weights and
+    both expert weights, each as ``|got - want|`` over ``|want|``.  Read
+    on an H100 (every kind of route): float32 6.5e-7 to 9.3e-7 (TF32 off:
+    the GEMMs' sums in another order), bfloat16 2.5e-4 to 9.0e-4 (the
+    GEMMs' outputs rounded apart); none held reads 0.  Limits 1e-5 and
+    5e-3, over 10x and 5x the readings.  One pair of the random routes'
+    754 dropped (its row -1) reads 0.0104 to 0.021 on four of the five
+    (float32, on the host): twice the bfloat16 limit."""
+    _card()
+    cfg = DeepSeekV2Config(**CARD, dtype=dtype)
+    moe = init_deepseek_params(cfg, torch.Generator().manual_seed(5)
+                               ).moe_layers()[0]
+    g = torch.Generator().manual_seed(6)
+    n, d = 256, cfg.hidden_size
+    plan = D.route_plan(routes_of(kind, n, 16, 6, 4, 8, g), 4, 8)
+    x0 = torch.randn(n, d, generator=g).to(dtype)
+    w0 = torch.rand(n, 6, generator=g)
+    cot = torch.randn(n, d, generator=g)
+    want = routed_grads(routed_torch, moe, x0, w0, plan, cot)
+    moe.cuda()
+    got = routed_grads(D.routed_kernels, moe, x0.cuda(), w0.cuda(),
+                       {k: v.cuda() if torch.is_tensor(v) else v
+                        for k, v in plan.items()}, cot.cuda())
+    gaps = {name: _gap(got[name], want[name]) for name in want}
+    print(kind, dtype, gaps)
+    for name, value in gaps.items():
+        assert value <= ROUTED_TOL[dtype], name
+    assert ck.launches["moe_combine_backward"] > 0

@@ -1,15 +1,16 @@
-"""The CUDA sources of the weighted, positions and mixture kernels, compiled
-for the host and run through their wrappers on CPU tensors, against the
-plain versions.
+"""The CUDA sources of the weighted, positions, mixture and MoE kernels,
+compiled for the host and run through their wrappers on CPU tensors,
+against the plain versions.
 
 A CUDA kernel has no interpret mode, so the card tests
 (``tests/test_torch_port_gpu.py``) are the kernels' judges.  This file
 reads the same sources a second way: ``g++`` compiles
-``csrc/sampling_kernels.cu``, ``csrc/index_kernels.cu`` and
-``csrc/mixture_kernels.cu`` against a small host header that stands in for the CUDA builtins (one block of one
+``csrc/sampling_kernels.cu``, ``csrc/index_kernels.cu``,
+``csrc/mixture_kernels.cu`` and ``csrc/moe_kernels.cu`` against a small host header that stands in for the CUDA builtins (one block of one
 thread: every launch runs its grid-stride loop over all lanes in one
-call; shared memory is static storage), with the ``<<<...>>>`` launch
-syntax stripped.  The wrappers in ``ops/cuda_kernel.py`` then call that
+call, a "warp" of one lane; shared memory is static storage; bf16 is a
+16-bit struct rounded to nearest even as the card's intrinsics round),
+with the ``<<<...>>>`` launch syntax stripped.  The wrappers in ``ops/cuda_kernel.py`` then call that
 library as they call the card's, and the output is held against the
 plain version (tolerance 0): the lane arithmetic, the table layout, the
 argument order of the C ABI and the chain composition of
@@ -33,6 +34,10 @@ from partiallyshuffledistributedsampler_tpu_torch.ops import (
     cuda_kernel as ck,
 )
 from partiallyshuffledistributedsampler_tpu_torch.sampling import alias as A
+from partiallyshuffledistributedsampler_tpu_torch.models import (
+    deepseek_v2 as D,
+)
+from test_torch_port_deepseek_v2 import ROUTES, routes_of
 from test_torch_port_mixture_wide import MIX_SPECS, boundary_positions
 
 #: the CUDA builtins the sources use, for one thread of one block
@@ -72,21 +77,47 @@ inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
 }
 template <class T> T __ldg(const T *p) { return *p; }
 inline void __syncthreads() {}
+#include <cmath>
+inline float __fmul_rn(float a, float b) { return a * b; }
+template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
+"""
+#: ``cuda_bf16.h`` for the host: the storage type and the two conversions
+_HOST_BF16_H = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 v) {
+  uint32_t b = (uint32_t)v.x << 16;
+  float f;
+  std::memcpy(&f, &b, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  uint32_t b;
+  std::memcpy(&b, &f, 4);
+  __nv_bfloat16 v;
+  v.x = (b & 0x7FFFFFFFu) > 0x7F800000u
+            ? 0x7FC0
+            : (uint16_t)((b + 0x7FFFu + ((b >> 16) & 1u)) >> 16);
+  return v;
+}
 """
 
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    """``{name: path}`` of the three sources built for the host."""
+    """``{name: path}`` of the four sources built for the host."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel sources for the host")
     d = tmp_path_factory.mktemp("host_kernels")
     (d / "cuda_runtime.h").write_text(_HOST_CUDA_H)
+    (d / "cuda_bf16.h").write_text(_HOST_BF16_H)
     for header in ck._HEADERS:
         shutil.copy(header, d)
     out = {}
-    for name in ("sampling", "index", "mixture"):
+    for name in ("sampling", "index", "mixture", "moe"):
         src = open(ck._SOURCES[name]).read()
         src = re.sub(r"<<<[^>]*>>>", "", src)
         src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
@@ -352,3 +383,56 @@ def test_mixture_entries_route_fused_false_to_the_wide_kernel_source(
         mixture_epoch_indices_cuda(_mix_spec("past-2^31"), 3, 1, 1, 3,
                                    fused=True, device="cpu")
     assert sum(ck.launches.values()) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ROUTES)
+def test_moe_kernel_sources_match_plain_versions(kind, dtype, host_kernels):
+    """The six MoE kernels against their plain versions on a buffer of 16
+    experts' routes, 8 held from the fifth, top 3 over 50 tokens, with
+    every row at or past ``ends[-1]`` of each input buffer NaN: the rows
+    below it equal, no NaN read.  Bit for bit but the SwiGLU's in float32
+    (the host's ``expf`` against PyTorch's vectorised exponential: read
+    2.4e-7 of the value forward, 7.2e-7 apart backward, where ``1 + x(1 -
+    s)`` cancels; limits 1e-6 each, and in bfloat16, read equal, one ulp)
+    and the combine's ``dw`` (a float32 dot product of 64 terms in another
+    order: read 7.6e-6 apart; limit 1e-5 and 1e-5 of the value)."""
+    g = torch.Generator().manual_seed(31)
+    n, k, d, f = 50, 3, 64, 48
+    plan = D.route_plan(routes_of(kind, n, 16, k, 4, 8, g), 4, 8)
+    row, ends, counts = plan["row"], plan["ends"], plan["counts"]
+    rows, end = plan["rows"], int(ends[-1])
+
+    def buffer(width):
+        t = torch.randn(rows, width, generator=g).to(dtype)
+        t[end:] = float("nan")
+        return t
+
+    x = torch.randn(n, d, generator=g).to(dtype)
+    got = ck.moe_gather(x, row, ends, counts, rows)
+    assert torch.equal(got[:end], ck.moe_gather_ref(x, row, ends, counts,
+                                                    rows)[:end])
+    drows = buffer(d)
+    got = ck.moe_gather_backward(drows, row, n)
+    assert torch.equal(got, ck.moe_gather_backward_ref(drows, row, n))
+    gu, dh = buffer(2 * f), buffer(f)
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else dict(
+        rtol=2 ** -7, atol=0)
+    got = ck.moe_swiglu(gu, ends, counts)
+    torch.testing.assert_close(
+        got[:end], ck.moe_swiglu_ref(gu, ends, counts)[:end], **tol)
+    got = ck.moe_swiglu_backward(gu, dh, ends, counts)
+    torch.testing.assert_close(
+        got[:end], ck.moe_swiglu_backward_ref(gu, dh, ends, counts)[:end],
+        **tol)
+    y, w = buffer(d), torch.rand(n, k, generator=g)
+    got = ck.moe_combine(y, w, row)
+    assert torch.equal(got, ck.moe_combine_ref(y, w, row))
+    dout = torch.randn(n, d, generator=g)
+    dy, dw = ck.moe_combine_backward(dout, y, w, row, ends, counts)
+    want_dy, want_dw = ck.moe_combine_backward_ref(dout, y, w, row, ends,
+                                                   counts)
+    assert torch.equal(dy[:end], want_dy[:end])
+    torch.testing.assert_close(dw, want_dw, rtol=1e-5, atol=1e-5)
+    assert not dw[row.view(n, k) < 0].any()
+    assert sum(ck.launches.values()) == 6

@@ -218,7 +218,10 @@ def test_cpu_routing_launches_no_kernel():
                            "mixture_source_keys": 0, "mixture_fused": 0,
                            "mixture_fused_wide": 0,
                            "shard_row_keys": 0, "shard_expand": 0,
-                           "weighted_stream": 0, "weighted_stream_wide": 0}
+                           "weighted_stream": 0, "weighted_stream_wide": 0,
+                           "moe_gather": 0, "moe_gather_backward": 0,
+                           "moe_swiglu": 0, "moe_swiglu_backward": 0,
+                           "moe_combine": 0, "moe_combine_backward": 0}
 
 
 # ------------------------------------------------------------- refusals
